@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of DynLP on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                      # full run: 100,000-vertex stream
-    python3 chip_smoke.py --vertices 20000     # a shorter stream
+    python3 chip_smoke.py                            # full run
+    python3 chip_smoke.py --vertices 10000 --stream-vertices 20000   # shorter
 
 Phases (each prints its lines and its seconds; any failed check raises):
 
 1. Card and build: the card's name and power limit, and the build of the
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc's register report.
 2. Kernels against their plain PyTorch versions on the card: the frontier
-   sweep ``ell_propagate_step`` at main-path width and on edge cases must
-   give the same bits; components and the supernode init agree with the
-   CPU; a small stream through ``DynLP`` on the card agrees with the CPU.
-3. Main path: ``DynLP`` (default backend, which must resolve to
-   ``ell_cuda``) over a ``gaussian_mixture_stream`` of 5,000-vertex
-   batches under the paper's 90/1/9 protocol.  The kernel's launch count
-   must equal the sweeps the stream took; the last batch's solve, run again
-   on the same (problem, f0, frontier) with ``backend="ref"``, must agree
-   within 20·δ; accuracy against the ground truth must reach 0.99.
-4. Timing at the main path's inputs: the last batch's solve is run again
+   sweep ``ell_propagate_step`` and the argkmin kernel, on edge cases and at
+   the main paths' widths, must give the same bits; components and the
+   supernode init agree with the CPU; a small stream through ``DynLP`` on
+   the card agrees with the CPU.
+3. First main path: ``DynLP`` (default backend, which must resolve to
+   ``ell_cuda``) over a ``gaussian_mixture_stream`` of 5,000-vertex batches
+   under the paper's 90/1/9 protocol (``--vertices``, 40,000 by default).
+   The sweep kernel's launches must equal the sweeps; the last batch's
+   solve, run again with ``backend="ref"``, must agree within 20·δ;
+   accuracy against the ground truth must reach 0.99.
+4. Second main path: ``StreamEngine(g, delta=1e-4, ingest="device")``
+   (default backend) over the same stream at 100,000 vertices
+   (``--stream-vertices``), batch t+1 submitted before batch t is drained.
+   The backend must resolve to ``ell_cuda``; argkmin launches must equal
+   the batches with insertions and sweep launches the sweeps; every batch
+   must converge; accuracy must reach 0.99; after the first path's last
+   batch the engine's graph arrays and committed labels must equal the
+   first path's byte for byte (the streams share their prefix).  Per batch
+   it prints the host graph update, the argkmin kernel's device time, the
+   solve's time and how long ``submit`` took to return.
+5. Timing at the second path's inputs: the last batch's solve is run again
    with every sweep's (F, frontier) kept; each sweep's kernel must give its
-   plain version's bits.  The kernel and its plain version are timed with
-   CUDA events on every one of those sweeps and, as a median, on the first,
-   each beside its bound, which counts the bytes that sweep's frontier needs.
+   plain version's bits; the kernel and its plain version are timed on
+   every sweep, each beside its bound.  The last batch's argkmin inputs are
+   timed through the kernel, its plain version and a three-call library
+   yardstick (``matmul``, ``topk``, ``amax``), beside the bound.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -48,12 +60,16 @@ sys.path.insert(0, str(REPO / "src"))
 from repro_torch.core import dynlp as dynlp_module  # noqa: E402
 from repro_torch.core.components import connected_components  # noqa: E402
 from repro_torch.core.dynlp import DynLP  # noqa: E402
+from repro_torch.core.stream import StreamEngine  # noqa: E402
 from repro_torch.core.init_labels import supernode_init  # noqa: E402
 from repro_torch.data.synth import StreamSpec, accuracy, gaussian_mixture_stream  # noqa: E402
 from repro_torch.graph.dynamic import UNLABELED, DynamicGraph  # noqa: E402
+from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
 from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E402
+from repro_torch.ingest import incremental_knn  # noqa: E402
 from repro_torch.kernels._build import load_library  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
+from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref  # noqa: E402
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
 
@@ -185,6 +201,67 @@ def check_sweep(name, args, delta=1e-3, row_offset=0):
     return err
 
 
+def argkmin_inputs(rng, c, d, m, count, k=5, dead=0.1, dup=False, real=None, kth_inf=0.1):
+    """argkmin inputs on the card (made with numpy), laid out as the ingest
+    path leaves them: a store of capacity ``c`` holding ``count`` rows, the
+    batch of ``m`` padded rows appended last, of which the first ``real``
+    are real (the rest zero, invalid in the store and in ``batch_valid``).
+    Dead rows, and ``kth`` under-full (-inf) on a share ``kth_inf`` of the
+    rows."""
+    real = m if real is None else real
+    emb = np.zeros((c, d), np.float32)
+    emb[:count] = normalize_rows(rng.normal(size=(count, d)).astype(np.float32))
+    if dup:
+        emb[: count // 2] = emb[0]
+    base = count - m
+    emb[base + real:count] = 0.0
+    valid = np.zeros(c, bool)
+    valid[:base] = rng.random(base) >= dead
+    valid[base:base + real] = True
+    kth = rng.uniform(0.4, 0.9, c).astype(np.float32)
+    kth[rng.random(c) < kth_inf] = -np.inf
+    bvalid = np.arange(m) < real
+    args = [torch.from_numpy(a).cuda() for a in
+            (emb, valid, kth, emb[base:count].copy(), bvalid)]
+    return dict(args=args, base=base, slack=selection_slack(d), k=k)
+
+
+def check_argkmin(name, inp):
+    """The kernel against its plain version: values, ids and mask bitwise."""
+    args, base, slack, k = inp["args"], inp["base"], inp["slack"], inp["k"]
+    c, d = args[0].shape
+    topk = min(k + SELECT_MARGIN, c)
+    got = argkmin_candidates(*args, base, slack, k=k)
+    want = argkmin_ref(*args, base, slack, topk=topk)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want[0])
+    err = float((got[0][fin] - want[0][fin]).abs().max()) if bool(fin.any()) else 0.0
+    same = [torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                        w.view(torch.int32) if w.dtype == torch.float32 else w)
+            for g, w in zip(got, want)]
+    print(f"   argkmin {name:<26} C={c:<6} D={d:<3} M={args[3].shape[0]:<5} TK={topk:<2} "
+          f"bitwise val/idx/disp={same} finite={int(fin.sum())} disp={int(got[2].sum())}")
+    require(all(same) and err == 0.0, f"argkmin {name}: kernel != plain version")
+    return err
+
+
+def argkmin_bound(inp):
+    """The least time (ms) an H100 takes for one argkmin call on these
+    inputs.  Operations: a multiply and an add per term of every (batch row,
+    valid store row) dot product, 2·M·C_valid·D; a dead row's products change
+    no output.  Bytes: the valid rows' embeddings and k-th weights, the
+    batch, ``valid`` and ``disp`` once each, and val/idx (8 bytes a slot)."""
+    store, valid, _, batch, _ = inp["args"]
+    c, d = store.shape
+    m = batch.shape[0]
+    topk = min(inp["k"] + SELECT_MARGIN, c)
+    cv = int(valid.sum())
+    flops = 2 * m * cv * d
+    nbytes = cv * (4 * d + 4) + 4 * m * d + 2 * c + 8 * m * topk
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, nbytes
+
+
 def phase_kernels():
     rng = np.random.default_rng(0)
     errs = [
@@ -201,6 +278,25 @@ def phase_kernels():
         check_sweep("row_offset clamps",
                     sweep_inputs(rng, 700, 8, nf=1500), row_offset=1000),
     ]
+
+    c, d, m = 131072, 16, 8192  # the second main path's last argkmin call
+    cases = [
+        ("main-path width", argkmin_inputs(rng, c, d, m, 103192, real=5000)),
+        ("main-path width, D=128", argkmin_inputs(rng, c, 128, m, 103192, real=5000)),
+        ("under-full, kth=-inf", argkmin_inputs(rng, 1024, 16, 8, 10, dead=0.5,
+                                                kth_inf=1.0)),
+        ("dead rows, mass duplicates", argkmin_inputs(rng, 4096, 16, 64, 4000, dead=0.4,
+                                                      dup=True)),
+        ("C, M off the tile", argkmin_inputs(rng, 3001, 40, 100, 2950, real=77)),
+        ("padding rows only", argkmin_inputs(rng, 2048, 8, 16, 1500, real=0)),
+        ("TK=32, D=128", argkmin_inputs(rng, 5000, 128, 300, 4900, k=24)),
+    ]
+    argkmin_errs = [check_argkmin(name, inp) for name, inp in cases]
+    inp = cases[2][1]  # every old valid row has an empty slot: all displaced
+    old = inp["args"][1] & (torch.arange(1024, device="cuda") < inp["base"])
+    require(torch.equal(argkmin_candidates(*inp["args"], inp["base"], inp["slack"],
+                                           k=5)[2], old),
+            "argkmin: the -inf kth rows are not exactly the displaced rows")
 
     # components: exact integers, so the card must match the CPU exactly
     n = 20_000
@@ -246,7 +342,7 @@ def phase_kernels():
     require(diff <= TOL, "small stream: card vs CPU beyond 20*delta")
     require(np.array_equal(gc.f[ids][far] >= 0.5, gg.f[ids][far] >= 0.5),
             "small stream: predictions differ away from the cutoff")
-    return max(errs)
+    return max(errs), max(argkmin_errs)
 
 
 def phase_main(vertices, batch_size):
@@ -259,6 +355,7 @@ def phase_main(vertices, batch_size):
     dyn = DynLP(g, delta=DELTA)
     # observe (not change) each step's solve: its inputs and its result
     last = {}
+    t = -1
 
     def recording(problem, f0, frontier0, **kw):
         t0 = time.perf_counter()
@@ -311,7 +408,124 @@ def phase_main(vertices, batch_size):
           f"{last['res'].iterations}/{ref.iterations} predictions_equal={same_pred}")
     require(diff <= TOL, "ell_cuda vs ref beyond 20*delta")
     require(same_pred, "ell_cuda vs ref predictions differ away from the cutoff")
-    return last, launches
+    return g, t + 1, launches
+
+
+GRAPH = ("src", "dst", "wgt", "knn_idx", "knn_wgt")
+
+
+def phase_stream(vertices, batch_size, ref_graph, ref_batches):
+    """``StreamEngine(ingest="device")`` over the stream, batch t+1 submitted
+    before batch t is drained.  Wrappers observe (and do not change) each
+    batch's host graph update, argkmin launch and solve."""
+    require(vertices >= ref_graph.num_nodes, "the engine's stream must cover the first path's")
+    spec = StreamSpec(total_vertices=vertices, batch_size=batch_size, seed=42,
+                      class_sep=6.0, noise=0.9)
+    g = DynamicGraph(emb_dim=spec.emb_dim, k=5)
+    eng = StreamEngine(g, delta=DELTA, ingest="device")
+    per, solves, last, last_argkmin = {}, [], {}, {}
+    cur = [0]
+    real_apply = g.apply_batch
+
+    def apply_batch(*a, **kw):
+        t0 = time.perf_counter()
+        eff = real_apply(*a, **kw)
+        per[cur[0]]["apply_ms"] = (time.perf_counter() - t0) * 1e3
+        return eff
+
+    def argkmin_timed(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = argkmin_candidates(*a, **kw)
+        e.record()
+        per[cur[0]]["argkmin"] = (s, e)
+        last_argkmin.update(args=[t.clone() for t in a[:5]], base=a[5], slack=a[6], k=kw["k"])
+        return out
+
+    def solve_timed(problem, f0, frontier0, **kw):  # runs on the engine's solve thread
+        t0 = time.perf_counter()
+        res = run_propagation(problem, f0, frontier0, **kw)
+        if kw.get("stream") is not None:
+            kw["stream"].synchronize()
+        solves.append((time.perf_counter() - t0) * 1e3)
+        last.update(problem=problem, f0=f0.clone(), frontier0=frontier0.clone(), res=res,
+                    kw={k: v for k, v in kw.items() if k != "stream"})
+        return res
+
+    truth = np.zeros(vertices, np.int8)
+    stats, inserts, snap = [], 0, {}
+
+    def report(i, st):
+        stats.append(st)
+        r = per[i]
+        ak = r["argkmin"][0].elapsed_time(r["argkmin"][1]) if "argkmin" in r else 0.0
+        print(f"   batch {i:2d}: submit {r['submit_ms']:8.1f} ms  host update "
+              f"{r['apply_ms']:8.1f} ms (argkmin {ak:6.2f} ms)  solve {solves[i]:7.1f} ms  "
+              f"iterations={st.iterations:4d} U={st.num_unlabeled:6d} (U,K)={st.bucket} "
+              f"backend={st.backend} converged={st.converged}", flush=True)
+        require(st.converged, f"engine batch {i} did not converge")
+        require(st.backend == "ell_cuda", f"engine batch {i} ran on {st.backend!r}")
+        if i == ref_batches - 1:  # the first path's last batch: compare
+            for name in GRAPH:
+                require(snap[name].tobytes() == getattr(ref_graph, name).tobytes(),
+                        f"engine {name} != DynLP's after batch {i}")
+            view = eng.committed_view()
+            for name in ("f", "labels", "alive"):
+                require(getattr(view, name).tobytes() == getattr(ref_graph, name).tobytes(),
+                        f"engine committed {name} != DynLP's after batch {i}")
+            print(f"   after batch {i} ({ref_graph.num_nodes} vertices): engine graph "
+                  f"{'/'.join(GRAPH)} and committed labels == DynLP's, byte for byte")
+
+    g.apply_batch = apply_batch
+    incremental_knn.argkmin_candidates = argkmin_timed
+    ops_module.run_propagation = solve_timed
+    ell_propagate_step.launches = 0
+    argkmin_candidates.launches = 0
+    try:
+        for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
+            cur[0] = t
+            per[t] = {}
+            base = g.num_nodes
+            t0 = time.perf_counter()
+            prev = eng.submit(batch)
+            per[t]["submit_ms"] = (time.perf_counter() - t0) * 1e3
+            truth[base:base + len(cls)] = cls
+            inserts += len(batch.ins_emb) > 0
+            if t == ref_batches - 1:
+                snap = {name: getattr(g, name).copy() for name in GRAPH}
+            if prev is not None:
+                report(t - 1, prev)
+        report(t, eng.drain())
+        eng.close()
+    finally:
+        del g.apply_batch
+        incremental_knn.argkmin_candidates = argkmin_candidates
+        ops_module.run_propagation = run_propagation
+    ell_launches, argkmin_launches = ell_propagate_step.launches, argkmin_candidates.launches
+    sweeps = sum(st.iterations for st in stats)
+    print(f"   batches={len(stats)} with insertions={inserts} argkmin launches="
+          f"{argkmin_launches}; sweeps={sweeps} sweep-kernel launches={ell_launches}")
+    require(argkmin_launches == inserts > 0, "argkmin launches != batches with insertions")
+    require(ell_launches == sweeps > 0, "sweep-kernel launches != sweeps")
+    require(len(solves) == len(stats) and all(s.backend == "ell_cuda" for s in stats),
+            "a batch skipped its solve")
+    # submit(t) returns once batch t is staged and its solve queued; it
+    # waits only for batch t-1's solve (its drain), never for its own
+    sub = np.array([per[i]["submit_ms"] for i in range(len(stats))])
+    upd = np.array([per[i]["apply_ms"] for i in range(len(stats))])
+    print(f"   per batch, median (max): submit returned in {np.median(sub):.1f} "
+          f"({sub.max():.1f}) ms, of which host update {np.median(upd):.1f} "
+          f"({upd.max():.1f}) ms; its own solve then ran {np.median(solves):.1f} "
+          f"({max(solves):.1f}) ms behind it; store {eng.ingestor.store.capacity} rows, "
+          f"{eng.ingestor.store.device_bytes() / 1e6:.1f} MB on the card")
+
+    ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
+    require(np.isfinite(g.f[ids]).all(), "non-finite labels")
+    acc = accuracy((g.f[ids] >= 0.5).astype(np.int8), truth[ids])
+    print(f"   accuracy vs ground truth: {acc:.4f} over {len(ids)} vertices")
+    require(acc >= 0.99, f"accuracy {acc} < 0.99")
+    return dict(last=last, argkmin=last_argkmin, ell_launches=ell_launches,
+                argkmin_launches=argkmin_launches)
 
 
 def phase_timing(last):
@@ -372,11 +586,58 @@ def phase_timing(last):
                 max_abs_err=err, bound_by=by)
 
 
+def phase_argkmin_timing(inp):
+    """The argkmin kernel, its plain version and the library yardstick on the
+    second main path's last argkmin inputs, beside the bound; then the
+    kernel alone at D = 128 on inputs of the same C and M."""
+    args, base, slack, k = inp["args"], inp["base"], inp["slack"], inp["k"]
+    store, _, _, batch, _ = args
+    c, d = store.shape
+    m = batch.shape[0]
+    topk = min(k + SELECT_MARGIN, c)
+    err = check_argkmin("main-path last batch", inp)
+    k_ms = statistics.median(
+        gpu_times([lambda: argkmin_candidates(*args, base, slack, k=k)] * 20, per_sleep=20))
+    # the plain version in four store tiles: ~230 launches a call, few
+    # enough to queue behind one sleep
+    tile = -(-c // 4)
+    p_ms = statistics.median(gpu_times(
+        [lambda: argkmin_ref(*args, base, slack, topk=topk, tile_rows=tile)] * 3,
+        per_sleep=1))
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32, as the kernel
+
+    def library():  # three PyTorch calls; the port calls none of them
+        s_ = torch.matmul(batch, store.T)
+        torch.topk(s_, topk, dim=1)
+        s_.amax(dim=0)
+
+    l_ms = statistics.median(gpu_times([library] * 5, per_sleep=1))
+    b_ms, by, flops, nbytes = argkmin_bound(inp)
+    full_ms = 2 * m * c * d / F32_FLOPS * 1e3
+    print(f"   argkmin (C, D, M, TK)=({c}, {d}, {m}, {topk}), {int(args[1].sum())} valid "
+          f"rows: kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  library (matmul+topk+amax) "
+          f"{l_ms:.3f} ms  bound {b_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
+          f"{by}; {nbytes / 1e6:.1f} MB)  kernel/bound {k_ms / b_ms:.2f}x  "
+          f"(all C rows: {full_ms:.4f} ms)")
+    wide = argkmin_inputs(np.random.default_rng(7), c, 128, m, base + m,
+                          real=int(args[4].sum()))
+    w_ms = statistics.median(gpu_times(
+        [lambda: argkmin_candidates(*wide["args"], wide["base"], wide["slack"], k=5)] * 10,
+        per_sleep=10))
+    wb = argkmin_bound(wide)
+    print(f"   argkmin at D=128, same C and M: kernel {w_ms:.3f} ms  bound {wb[0]:.4f} ms "
+          f"({wb[2] / 1e9:.1f} GFLOP, {wb[1]})  kernel/bound {w_ms / wb[0]:.2f}x")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # 100,000 vertices, twice IMDB's 50k; the host kNN (numpy, O(N^2) over
-    # a stream) takes most of the run's time, not the card
-    ap.add_argument("--vertices", type=int, default=100_000)
+    # the first path's host kNN (numpy, O(N^2) over a stream) takes most of
+    # its time, so it stops at 40,000 vertices; the second path, with the
+    # candidate search on the card, runs the full 100,000
+    ap.add_argument("--vertices", type=int, default=40_000)
+    ap.add_argument("--stream-vertices", type=int, default=100_000)
     ap.add_argument("--batch", type=int, default=5_000)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -396,19 +657,32 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"   nvcc: {line.strip()}")
     with Phase("kernels vs plain versions on the card"):
-        err = phase_kernels()
-    with Phase("main path: DynLP.step over the stream"):
-        last, launches = phase_main(args.vertices, args.batch)
+        sweep_err, argkmin_err = phase_kernels()
+    with Phase("main path 1: DynLP.step over the stream"):
+        dyn_graph, dyn_batches, dyn_launches = phase_main(args.vertices, args.batch)
+    with Phase("main path 2: StreamEngine(ingest='device') over the stream"):
+        out = phase_stream(args.stream_vertices, args.batch, dyn_graph, dyn_batches)
     with Phase("timing at the main path's shapes"):
-        tm = phase_timing(last)
+        tm = phase_timing(out["last"])
+        ta = phase_argkmin_timing(out["argkmin"])
     record = {"kernels": [{
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
         "replaces": "src/repro/kernels/ell_propagate.py:58",
-        "launches": launches, "max_abs_err": max(err, tm["max_abs_err"]),
+        "launches": out["ell_launches"], "max_abs_err": max(sweep_err, tm["max_abs_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
+    }, {
+        "name": "argkmin", "route": "cuda",
+        "source": "src/repro_torch/csrc/argkmin.cu",
+        "replaces": "src/repro/kernels/argkmin.py:117",
+        "launches": out["argkmin_launches"],
+        "max_abs_err": max(argkmin_err, ta["max_abs_err"]),
+        "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
+        "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
     }]}
+    print(f"   DynLP path: {dyn_launches} sweep-kernel launches; engine path: "
+          f"{out['ell_launches']} sweep-kernel and {out['argkmin_launches']} argkmin launches")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(card_line())

@@ -1,0 +1,374 @@
+"""Streaming engine for dynamic batch updates, single device.
+
+Counterpart of the single-device half of ``repro.core.stream``.
+``DynLP.step`` builds a fresh problem per Δ_t and waits for its solve;
+``StreamEngine`` is the amortized version:
+
+  * **Bucket ladder** — every snapshot is padded up the geometric
+    ``(U_bucket, K_bucket)`` ladder (``snapshot.bucket`` ×
+    ``snapshot.bucket_k``), so an unbounded stream touches a bounded set of
+    shapes (``snapshot.ladder_size``).
+  * **Two buffer generations per rung** — per bucket the engine keeps two
+    device copies of ``(nbr, wgt, wl0, wl1, valid)`` and stages batch t+1
+    (``copy_`` into the existing tensors) into the generation *not* read
+    by batch t's in-flight solve.  A rung allocates its buffers once; a
+    ``StreamStats.recompiled`` batch is one that entered a rung for the
+    first time, so ``recompile_count`` ≤ ``ladder_size``.
+  * **Overlap** — ``submit`` applies Δ_t on the host, stages it, queues its
+    solve and returns; only the NEXT ``submit`` (or ``drain``) waits for
+    it.  The frontier loop syncs the host once per sweep, so a side CUDA
+    stream alone would not free the caller: each solve runs on one worker
+    thread, which on a CUDA device queues its work on a side stream behind
+    an event recorded after the staged tensors.  Those tensors stay
+    referenced until ``drain``; the graph's ``f`` is read only at
+    ``drain``.  With device ingest, batch t+1's argkmin runs on the
+    caller's stream while batch t's solve runs on the side stream.  On the
+    CPU the same code runs, without the streams.
+
+``step`` (submit + drain) keeps ``DynLP.step``'s semantics and gives its
+bits: the same host snapshot, supernode init and backend on the same inputs
+(tests/test_torch_stream.py).  The solve goes through the backend registry
+of ``kernels.ops``: each rung's backend is resolved once, at rung entry.
+
+Not ported yet (the engine does not define them): the mesh
+(``mesh=``/``transport=``, ``transport_summary``), the ``bsr`` and
+``landmark`` staging, ``device_view`` (serving) and ``checkpoint`` /
+``checkpoint_state`` / ``restore`` (persistence).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import logging
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.components import compact_labels
+from repro_torch.core.dynlp import gprime_components
+from repro_torch.core.init_labels import supernode_init
+from repro_torch.core.propagate import PropagateResult, PropagationProblem
+from repro_torch.core.snapshot import HostSnapshot, LabelView, build_host_problem
+from repro_torch.device import resolve_device
+from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
+from repro_torch.kernels import ops
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class StreamStats:
+    iterations: int
+    converged: bool
+    num_components: int
+    frontier_size: int
+    num_unlabeled: int
+    wall_ms: float
+    max_residual: float
+    bucket: tuple[int, int]  # (U_bucket, K_bucket) device shape this Δ_t;
+    # (0, 0) for a no-op Δ_t whose empty frontier staged nothing
+    recompiled: bool  # True iff this Δ_t allocated a rung's buffers first
+    transport: str = "single"  # "single", or "none" (no-op Δ_t)
+    backend: str = "none"  # "ref" / "ell_cuda"; "none" for a no-op Δ_t
+
+
+@dataclasses.dataclass
+class _Pending:
+    job: concurrent.futures.Future | None  # the solve; None for a no-op Δ_t
+    unl_ids: np.ndarray
+    t0: float
+    num_components: int
+    frontier_size: int
+    bucket: tuple[int, int]
+    recompiled: bool
+    # post-batch host state captured at submit: becomes the committed
+    # LabelView at drain, with the solved rows folded over view_f
+    view_labels: np.ndarray
+    view_alive: np.ndarray
+    view_f: np.ndarray
+    transport: str = "single"
+    backend: str = "none"
+    keep: tuple = ()  # device tensors the in-flight solve reads
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(PropagationProblem))
+
+
+class StreamEngine:
+    """Stateful streaming DynLP over a ``DynamicGraph``, on one device."""
+
+    def __init__(
+        self,
+        graph: DynamicGraph,
+        delta: float = 1e-4,
+        tau: float | None = None,
+        max_iters: int = 200_000,
+        max_degree: int | None = None,
+        backend: str | None = None,
+        max_k: int | None | str = "auto",
+        ingest: object = None,
+        ingest_order: str = "arrival",
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.graph = graph
+        # ingest: who nominates kNN candidates for arriving batches.
+        # None/"host" = the blockwise host staging path (graph default);
+        # "device" = a DeviceIngestor running the argkmin kernel over the
+        # device-resident embedding store, adopting any rows already in
+        # the graph; or a selector instance.  Labels and topology are
+        # bit-identical either way.
+        if ingest in (None, "host"):
+            self.ingestor = None
+        elif ingest == "device":
+            from repro_torch.ingest import DeviceIngestor
+            self.ingestor = DeviceIngestor(graph.emb_dim, device=self.device)
+            if graph.num_nodes:
+                self.ingestor.attach(graph)
+        elif isinstance(ingest, str):
+            raise ValueError(f"unknown ingest mode {ingest!r}; want "
+                             "'host', 'device', or a selector instance")
+        else:
+            self.ingestor = ingest
+        # ingest_order: "arrival" keeps the caller's row order; "locality"
+        # orders each batch by data.synth.cosine_locality_order before ids
+        # are assigned (engines sharing a stream agree if they share this)
+        if ingest_order not in ("arrival", "locality"):
+            raise ValueError(f"unknown ingest_order {ingest_order!r}; want "
+                             "'arrival' or 'locality'")
+        self.ingest_order = ingest_order
+        self.delta = delta
+        self.tau = tau
+        self.max_iters = max_iters
+        self.max_degree = max_degree
+        if backend not in (None, "auto"):
+            ops.backend_spec(backend)  # unknown names fail here, not mid-stream
+        self.backend = backend
+        # max_k caps the ELL neighbor axis (heaviest-edge truncation);
+        # "auto" = 4x the graph's kNN k, None = uncapped
+        if isinstance(max_k, str) and max_k != "auto":
+            raise ValueError(
+                f"max_k={max_k!r} invalid; want an int, None (uncapped), "
+                "or 'auto' (4x the graph's kNN k)")
+        self.max_k = 4 * graph.k if max_k == "auto" else max_k
+        # per-engine max_k truncation-warning dedup
+        self._max_k_warned: set[tuple[int, int]] = set()
+        # per-rung backend, resolved through the registry at rung entry
+        self._backend_modes: dict[tuple[int, int], str] = {}
+        # bucket_key -> two generations of device problem buffers; the
+        # generation toggles per commit so the in-flight solve never shares
+        # storage with the snapshot being staged
+        self._buffers: dict[tuple[int, int], list[PropagationProblem | None]] = {}
+        self._gen: dict[tuple[int, int], int] = {}
+        self._pending: _Pending | None = None
+        self.bucket_keys: set[tuple[int, int]] = set()
+        self.recompile_count = 0  # batches that entered a rung first
+        self.batches = 0
+        self.commits = 0  # batches whose results have been drained
+        # query-side committed snapshot, replaced at every drain
+        self._view = LabelView.from_graph(graph, commit_id=0)
+        self._worker = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="stream-solve")
+        self._closed = False
+        self._side = (torch.cuda.Stream(device=self.device)
+                      if self.device.type == "cuda" else None)
+
+    # ------------------------------------------------------------------ #
+    def _rung_backend(self, key: tuple[int, int]) -> str:
+        """The rung's backend, fixed through the registry at rung entry."""
+        backend = self._backend_modes.get(key)
+        if backend is None:
+            backend = ops.select_backend(self.backend, device=self.device)
+            self._backend_modes[key] = backend
+            logger.info("stream backend: rung %s -> %s", key, backend)
+        return backend
+
+    def _commit(self, host: HostSnapshot) -> tuple[PropagationProblem, bool]:
+        """Copy a host snapshot into the rung's next buffer generation;
+        returns the buffers and whether the rung was entered first."""
+        key = host.bucket_key
+        first = key not in self._buffers
+        slots = self._buffers.setdefault(key, [None, None])
+        gen = self._gen.get(key, 1) ^ 1
+        self._gen[key] = gen
+        arrays = {name: torch.from_numpy(np.ascontiguousarray(getattr(host, name)))
+                  for name in _FIELDS}
+        if slots[gen] is None:  # this generation's first batch allocates it
+            slots[gen] = PropagationProblem(
+                **{name: t.to(self.device, copy=True) for name, t in arrays.items()})
+        else:
+            for name, t in arrays.items():
+                getattr(slots[gen], name).copy_(t)
+        self.bucket_keys.add(key)
+        return slots[gen], first
+
+    def _solve(self, problem, f0, frontier, backend, ready) -> PropagateResult:
+        """The worker thread's job: the solve, on the side stream behind
+        ``ready``, finished before the job returns."""
+        if self._side is not None:
+            self._side.wait_event(ready)
+        res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
+                                  max_iters=self.max_iters, backend=backend,
+                                  device=self.device, stream=self._side)
+        if self._side is not None:
+            self._side.synchronize()
+        return res
+
+    # ------------------------------------------------------------------ #
+    def submit(self, batch: BatchUpdate) -> StreamStats | None:
+        """Apply Δ_t, stage it, queue its solve; returns the now-complete
+        stats of the PREVIOUS batch (None on the first call)."""
+        if self._closed:
+            raise RuntimeError("StreamEngine is closed")
+        t0 = time.perf_counter()
+        g = self.graph
+        dev = self.device
+
+        # ---- Step 0: arrival ordering (ids follow row order) ----
+        if self.ingest_order == "locality" and len(batch.ins_emb) > 2:
+            from repro_torch.data.synth import cosine_locality_order
+            order = cosine_locality_order(np.asarray(batch.ins_emb, np.float32))
+            batch = dataclasses.replace(
+                batch, ins_emb=np.asarray(batch.ins_emb)[order],
+                ins_labels=np.asarray(batch.ins_labels)[order])
+
+        # ---- Step 1: change adjustment & sparsification (host) ----
+        effect = g.apply_batch(batch, tau=self.tau, selector=self.ingestor)
+        m = len(effect.new_ids)
+
+        # ``effect.affected`` is alive-filtered, so the frontier is nonempty
+        # iff some affected vertex is unlabeled
+        if not (len(effect.affected) and (g.labels[effect.affected] == UNLABELED).any()):
+            # no-op Δ_t: the solve would run zero sweeps, so nothing is
+            # staged or queued; the batch still commits at drain
+            prev = self.drain()
+            self.batches += 1
+            unl_ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
+            self._pending = _Pending(
+                job=None, unl_ids=unl_ids, t0=t0, num_components=0, frontier_size=0,
+                bucket=(0, 0), recompiled=False, transport="none", backend="none",
+                view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy())
+            return prev
+
+        # ---- stage batch t while batch t-1 still propagates ----
+        host = build_host_problem(g, max_degree=self.max_degree, auto_bucket=True,
+                                  max_k=self.max_k, warned=self._max_k_warned)
+        u = len(host.unl_ids)
+        u_pad = len(host.valid)
+        frontier = np.zeros(u_pad, bool)
+        aff_rows = host.remap[effect.affected]
+        frontier[aff_rows[aff_rows >= 0]] = True
+        backend = self._rung_backend(host.bucket_key)
+        problem, recompiled = self._commit(host)
+        frontier_dev = torch.from_numpy(frontier).to(dev)
+
+        # ---- Step 2: supernode label initialization (as DynLP.step) ----
+        n_components = 0
+        new_unl = effect.new_ids[g.labels[effect.new_ids] == UNLABELED]
+        if m and len(new_unl):
+            comp_local = gprime_components(effect, m, dev)
+            local_idx = torch.from_numpy(new_unl - effect.new_ids[0]).to(dev)
+            comp = compact_labels(comp_local)[local_idx]
+            n_components = int(comp.max()) + 1
+            rows = torch.from_numpy(host.remap[new_unl]).to(dev)
+            f_init = supernode_init(comp, problem.wl0[rows], problem.wl1[rows],
+                                    num_segments=max(m, 1))
+            g.f[new_unl] = f_init.cpu().numpy()
+
+        # ---- drain batch t-1: f0 below reads its labels ----
+        prev = self.drain()
+
+        # ---- Step 3: queue this batch's solve ----
+        f0 = np.full(u_pad, 0.5, np.float32)
+        f0[:u] = g.f[host.unl_ids]
+        f0_dev = torch.from_numpy(f0).to(dev)
+        ready = None
+        if self._side is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, backend, ready)
+        self.recompile_count += recompiled
+        self.batches += 1
+        self._pending = _Pending(
+            job=job, unl_ids=host.unl_ids, t0=t0, num_components=n_components,
+            frontier_size=int(frontier.sum()), bucket=host.bucket_key,
+            recompiled=recompiled, transport="single", backend=backend,
+            # labels/alive fixed by apply_batch; f holds batch t-1's
+            # committed labels plus this batch's supernode inits
+            view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy(),
+            keep=(problem, f0_dev, frontier_dev))
+        return prev
+
+    # ------------------------------------------------------------------ #
+    def drain(self) -> StreamStats | None:
+        """Wait for the in-flight solve and fold its labels back into the
+        host graph; returns its stats (None if nothing is pending).
+
+        Draining COMMITS the batch: the committed ``LabelView`` is rebuilt
+        here, so ``committed_view()`` readers flip from batch t-1's labels
+        to batch t's at once."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return None
+        if p.job is None:  # no-op batch: nothing was solved
+            iterations, converged, resid = 0, True, 0.0
+        else:
+            res = p.job.result()  # re-raises a failed solve here
+            solved = res.f.cpu().numpy()[: len(p.unl_ids)]
+            self.graph.f[p.unl_ids] = solved
+            p.view_f[p.unl_ids] = solved
+            iterations, converged, resid = res.iterations, res.converged, res.max_residual
+        self.commits += 1
+        self._view = LabelView(f=p.view_f, labels=p.view_labels,
+                               alive=p.view_alive, commit_id=self.commits)
+        return StreamStats(
+            iterations=iterations, converged=converged,
+            num_components=p.num_components, frontier_size=p.frontier_size,
+            num_unlabeled=len(p.unl_ids),
+            wall_ms=(time.perf_counter() - p.t0) * 1e3, max_residual=resid,
+            bucket=p.bucket, recompiled=p.recompiled, transport=p.transport,
+            backend=p.backend)
+
+    def poll(self) -> StreamStats | None:
+        """Non-blocking ``drain``: commit the in-flight batch only if its
+        solve has finished; otherwise return None without waiting.  An
+        unfinished poll yields the interpreter lock once, so a caller that
+        spins on ``poll`` does not starve the solve thread."""
+        p = self._pending
+        if p is None:
+            return None
+        if p.job is not None and not p.job.done():
+            time.sleep(0)
+            return None
+        return self.drain()
+
+    @property
+    def in_flight(self) -> bool:
+        """True while a submitted batch has not been drained (committed)."""
+        return self._pending is not None
+
+    def committed_view(self) -> LabelView:
+        """The query-side snapshot of the last COMMITTED batch: safe to read
+        while a later batch is in flight (it advances only at drain).
+        Before any commit it reflects the graph the engine was built on."""
+        return self._view
+
+    def step(self, batch: BatchUpdate) -> StreamStats:
+        """Synchronous Δ_t update with ``DynLP.step`` semantics."""
+        self.submit(batch)
+        return self.drain()
+
+    def close(self) -> None:
+        """Stop the solve thread once the in-flight solve, if any, has
+        finished (a pending batch can still be drained afterwards); a
+        later ``submit`` raises."""
+        self._closed = True
+        self._worker.shutdown(wait=True)
+
+    def predictions(self, cutoff: float = 0.5) -> tuple[np.ndarray, np.ndarray]:
+        """(global ids, binary predictions) for alive unlabeled vertices."""
+        g = self.graph
+        ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
+        return ids, (g.f[ids] >= cutoff).astype(np.int8)

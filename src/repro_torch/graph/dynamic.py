@@ -2,8 +2,8 @@
 
 Numpy copy of ``repro.graph.dynamic``; the parity tests hold its edge
 lists, kNN lists and ``BatchEffect``s byte-identical to the reference's.
-The port has only the host selector so far (device ingest is a later
-slice).
+Device ingest is ``repro_torch.ingest.DeviceIngestor``, a selector that
+runs the argkmin kernel over the device-resident embedding store.
 
 The paper keeps the evolving graph in CPU memory (growable 2-D vectors) and
 ships per-batch subgraphs to the device.  We mirror that: numpy arrays grow
@@ -23,8 +23,8 @@ the lists after each batch.
 
 *Where* the candidate search runs is pluggable: ``apply_batch`` takes a
 selector — ``HostKNNSelector`` (the blockwise-BLAS staging path, default)
-or ``ingest.incremental_knn.DeviceIngestor`` (the Pallas/XLA argkmin path
-over the device-resident embedding store).  Selectors only nominate
+or ``ingest.incremental_knn.DeviceIngestor`` (the argkmin kernel over the
+device-resident embedding store).  Selectors only nominate
 candidate *supersets*; the canonical re-selection and list merges here are
 shared, which is what makes the two paths bit-identical (``graph.knn``
 module docstring).

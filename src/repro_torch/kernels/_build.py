@@ -32,6 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F, _I, _P], _I),
+    "argkmin": ([_P] * 11 + [_I] * 6 + [_F, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

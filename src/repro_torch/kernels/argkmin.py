@@ -1,0 +1,179 @@
+"""Fused cosine argkmin over the device embedding store: CUDA kernel and plain version.
+
+Counterpart of the Pallas TPU kernel ``repro.kernels.argkmin``
+(``_argkmin_pallas_impl``).  One pass over the store answers both questions
+an arriving batch poses:
+
+  1. **New-row candidates** — per batch row, the top-TK store rows by
+     ``w = (batch·storeᵀ + 1)/2``, dead rows and the row's own store row
+     (``base_id + i``) masked.  These are candidate *supersets*: the host
+     re-selects the final top-k canonically (``graph.knn``), so the
+     kernel's rounding never reaches an edge weight.
+  2. **Displacement pruning** — the mask of old valid store rows whose
+     current k-th weight some valid batch row beats within ``slack``.
+
+The order is (w desc, store row asc) everywhere: every partial list and
+every merge keeps it, so mass-duplicate inputs give the same candidates on
+every path.  Empty slots are ``(-inf, -1)``.
+
+``argkmin_ref`` is the plain torch version.  Each dot product sums D terms
+in order, one rounded multiply and one rounded add per term, and ``w`` is
+``(s + 1) * 0.5``; the CUDA kernel (``csrc/argkmin.cu``) does the same ops in
+the same order, so the two give the same bits (values, indices and mask).
+The plain version walks the store in tiles and folds each into the running
+list with ``merge_topk``, so it never holds an (M, C) temporary.  The
+wrapper ``argkmin_candidates`` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.graph.knn import SELECT_MARGIN
+
+TK_MAX = 32  # the kernel's compile-time bound on the list width
+D_MAX = 128  # the kernel is built for D = 8, 16, ..., 128
+ROWS_PER_BLOCK = 128  # batch rows per block of the kernel's first pass
+SPLIT_TARGET = 1056  # blocks to aim for in the first pass (8 per SM)
+_PLAIN_TILE_ELEMS = 2**26  # (M, tile) elements per plain-version temporary
+
+
+def merge_topk(val: torch.Tensor, idx: torch.Tensor, topk: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``topk`` of concatenated candidate lists, ties to the lower
+    position.
+
+    ``val``/``idx`` are (M, W); a stable descending sort keeps equal values
+    in column order, so when the columns hold ids in ascending order among
+    equal values (lists of ascending row blocks, each already in the
+    canonical order), lowest position is lowest id.  Slots whose value is
+    ``-inf`` come back with id ``-1``.
+    """
+    mval, pos = torch.sort(val, dim=1, descending=True, stable=True)
+    mval = mval[:, :topk]
+    midx = idx.gather(1, pos[:, :topk])
+    return mval, torch.where(mval == -np.inf, torch.full_like(midx, -1), midx)
+
+
+def _weights(batch: torch.Tensor, tile: torch.Tensor) -> torch.Tensor:
+    """``(batch·tileᵀ + 1) * 0.5``, the dot summed in D order with every
+    multiply and add rounded on its own (the kernel's arithmetic)."""
+    acc = torch.zeros((batch.shape[0], tile.shape[0]), dtype=torch.float32,
+                      device=batch.device)
+    for d in range(batch.shape[1]):
+        acc = acc + batch[:, d, None] * tile[None, :, d]
+    return (acc + 1.0) * 0.5
+
+
+def argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, *,
+                topk: int, tile_rows: int | None = None):
+    """Plain torch version: returns ``(val (M, topk) f32, idx (M, topk)
+    i32, disp (C,) bool)``.  ``tile_rows`` sets the store tile it walks
+    (default: as many rows as keep an (M, tile) temporary at 2**26
+    elements); the result does not depend on it."""
+    c, _ = store.shape
+    m = batch.shape[0]
+    dev = store.device
+    tile = tile_rows or max(1, min(c, _PLAIN_TILE_ELEMS // max(m, 1)))
+    neg = torch.full((), -np.inf, dtype=torch.float32, device=dev)
+    slack_t = torch.full((), float(slack), dtype=torch.float32, device=dev)
+    self_row = int(base_id) + torch.arange(m, device=dev)
+    val = torch.full((m, topk), -np.inf, dtype=torch.float32, device=dev)
+    idx = torch.full((m, topk), -1, dtype=torch.int32, device=dev)
+    disp = torch.zeros(c, dtype=torch.bool, device=dev)
+    for lo in range(0, c, tile):
+        hi = min(lo + tile, c)
+        rows = torch.arange(lo, hi, device=dev)
+        w = _weights(batch, store[lo:hi])
+        if m:
+            colmax = torch.where(batch_valid[:, None], w, neg).amax(dim=0)
+            disp[lo:hi] = (valid[lo:hi] & (rows < int(base_id))
+                           & (colmax > kth[lo:hi] - slack_t))
+        ok = valid[lo:hi][None, :] & (rows[None, :] != self_row[:, None])
+        val, idx = merge_topk(
+            torch.cat([val, torch.where(ok, w, neg)], dim=1),
+            torch.cat([idx, rows.to(torch.int32).expand(m, -1)], dim=1), topk)
+    return val, idx, disp
+
+
+def _check(store, valid, kth, batch, batch_valid, base_id):
+    dev = store.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"argkmin_candidates: unsupported device {dev}")
+    if store.dim() != 2 or batch.dim() != 2:
+        raise ValueError("store and batch must be 2-D")
+    c, d = store.shape
+    m = batch.shape[0]
+    want = (("store", store, torch.float32, (c, d)), ("valid", valid, torch.bool, (c,)),
+            ("kth", kth, torch.float32, (c,)), ("batch", batch, torch.float32, (m, d)),
+            ("batch_valid", batch_valid, torch.bool, (m,)))
+    for name, t, dtype, shape in want:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, store on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 0 <= int(base_id) <= 2**31 - 1 - m:
+        raise ValueError(f"base_id={base_id} out of range")
+    if max(c * d, m * d) >= 2**31:
+        raise ValueError("argkmin_candidates indexes with 32-bit ints")
+
+
+def argkmin_candidates(store, valid, kth, batch, batch_valid, base_id, slack, *, k: int):
+    """Fast-path candidates + displacement mask for one embedding batch.
+
+    ``store`` (C, D) f32 normalized rows (row == global id), ``valid`` (C,)
+    bool, ``kth`` (C,) f32 (``-inf`` while a row's list is under-full),
+    ``batch`` (M, D) f32 (already appended to the store at ``base_id``),
+    ``batch_valid`` (M,) bool, ``slack`` the pruning tolerance.  Returns
+    ``(val (M, TK) f32, idx (M, TK) i32, disp (C,) bool)`` with
+    ``TK = min(k + SELECT_MARGIN, C)``.
+
+    CPU tensors take ``argkmin_ref``; CUDA tensors launch the kernel on the
+    current stream (building it at the first launch) and bump
+    ``argkmin_candidates.launches``.  Nothing falls back: inputs the kernel
+    does not take (D not a multiple of 8 or above 128, TK above 32) raise.
+    """
+    _check(store, valid, kth, batch, batch_valid, base_id)
+    c, d = store.shape
+    m = batch.shape[0]
+    topk = min(k + SELECT_MARGIN, c)
+    if store.device.type == "cpu":
+        return argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, topk=topk)
+    if d % 8 or not 8 <= d <= D_MAX:
+        raise ValueError(f"the argkmin kernel takes D = 8, 16, ..., {D_MAX}; got {d}")
+    if not 1 <= topk <= TK_MAX:
+        raise ValueError(f"the argkmin kernel keeps at most {TK_MAX} candidates; "
+                         f"k + SELECT_MARGIN = {k + SELECT_MARGIN}")
+    if store.data_ptr() % 16:
+        raise ValueError("store must be 16-byte aligned")
+    from repro_torch.kernels._build import load_library
+
+    dev = store.device
+    val = torch.empty((m, topk), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, topk), dtype=torch.int32, device=dev)
+    disp = torch.empty(c, dtype=torch.uint8, device=dev)
+    if m == 0:
+        return val, idx, disp.zero_().view(torch.bool)
+    row_blocks = -(-m // ROWS_PER_BLOCK)
+    splits = max(1, min(-(-SPLIT_TARGET // row_blocks), -(-c // 256), 65535))
+    pval = torch.empty((splits, m, topk), dtype=torch.float32, device=dev)
+    pidx = torch.empty((splits, m, topk), dtype=torch.int32, device=dev)
+    pcol = torch.empty((row_blocks, c), dtype=torch.float32, device=dev)
+    lib = load_library()
+    code = lib.lib.argkmin(
+        store.data_ptr(), valid.data_ptr(), kth.data_ptr(), batch.data_ptr(),
+        batch_valid.data_ptr(), val.data_ptr(), idx.data_ptr(), disp.data_ptr(),
+        pval.data_ptr(), pidx.data_ptr(), pcol.data_ptr(), c, d, m, topk, splits,
+        int(base_id), float(slack), torch.cuda.current_stream(dev).cuda_stream)
+    lib.check(code, "argkmin launch")
+    argkmin_candidates.launches += 1
+    return val, idx, disp.view(torch.bool)
+
+
+argkmin_candidates.launches = 0  # kernel launches since the last reset

@@ -23,6 +23,7 @@ The port reads no environment variable to change that.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -146,12 +147,21 @@ def run_propagation(
     max_iters: int = 100_000,
     backend: str | None = None,
     device: str | torch.device | None = None,
+    stream: torch.cuda.Stream | None = None,
 ) -> PropagateResult:
     """Single propagation entry point: the solve runs on ``device``
     (``None`` → ``cuda``), with the inputs moved there, through the
-    backend ``select_backend`` resolves."""
+    backend ``select_backend`` resolves.
+
+    ``stream`` (CUDA only) is the stream the solve's work is queued on; the
+    caller orders it after whatever produced the inputs (``StreamEngine``
+    runs each solve on a side stream behind an event).  ``None`` queues on
+    the current stream."""
     dev = resolve_device(device)
-    problem = problem.to(dev)
-    name = select_backend(backend, problem)
-    return backend_spec(name).run(problem, f0.to(dev), frontier0.to(dev),
-                                  delta=delta, max_iters=max_iters)
+    if stream is not None and dev.type != "cuda":
+        raise ValueError(f"stream= needs a CUDA device, got {dev}")
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        problem = problem.to(dev)
+        name = select_backend(backend, problem)
+        return backend_spec(name).run(problem, f0.to(dev), frontier0.to(dev),
+                                      delta=delta, max_iters=max_iters)

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
-This system has no weights: its state is the graph and the labels.  These
-two functions let both packages compute the same thing from the same state
-(the tests hand a stream over from the reference to the port mid-way).
-They take plain numpy arrays, so the port never imports the reference.
+This system has no weights: its state is the graph, the labels and (with
+device ingest) the embedding store.  These functions let both packages
+compute the same thing from the same state (the tests hand a stream over
+from the reference to the port mid-way).  They take plain numpy arrays, so
+the port never imports the reference.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.propagate import PropagationProblem
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import DynamicGraph
+from repro_torch.ingest.embedding_store import EmbeddingStore
 
 
 def graph_from_reference(arrays: dict[str, np.ndarray], emb_dim: int,
@@ -37,3 +39,15 @@ def problem_from_arrays(nbr, wgt, wl0, wl1, valid,
     return PropagationProblem(nbr=as_t(nbr, np.int32), wgt=as_t(wgt, np.float32),
                               wl0=as_t(wl0, np.float32), wl1=as_t(wl1, np.float32),
                               valid=as_t(valid, np.bool_))
+
+
+def store_from_reference(arrays: dict[str, np.ndarray], count: int, emb_dim: int,
+                         device: str | torch.device | None = None) -> EmbeddingStore:
+    """A port ``EmbeddingStore`` on ``device`` (``None`` → ``cuda``) from
+    the reference's ``EmbeddingStore.state_arrays()`` as numpy arrays
+    (``emb``, ``valid``, ``kth``) and its ``count``; pass it to
+    ``DeviceIngestor(store=...)`` to go on with the reference's stream."""
+    store = EmbeddingStore(emb_dim, device=device)
+    store.load_state_arrays({k: np.asarray(arrays[k]) for k in ("emb", "valid", "kth")},
+                            count)
+    return store

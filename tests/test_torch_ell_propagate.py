@@ -140,13 +140,14 @@ def test_build_needs_nvcc_only_at_first_launch(monkeypatch):
 
 
 def test_build_inputs_are_declared():
-    assert [p.name for p in _build.sources()] == ["ell_propagate.cu"]
-    text = (_build.CSRC / "ell_propagate.cu").read_text()
+    assert [p.name for p in _build.sources()] == ["argkmin.cu", "ell_propagate.cu"]
+    text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
-        assert f'extern "C"' in text and name in text
-    argtypes, restype = _build.SIGNATURES["ell_propagate_step"]
+        assert f'extern "C" int {name}(' in text or f'extern "C" const char* {name}(' in text
     # every pointer and the stream as c_void_p: a c_int would cut them
-    assert argtypes[:8] == [ctypes.c_void_p] * 8 and argtypes[-1] is ctypes.c_void_p
-    assert restype is ctypes.c_int
+    for name, n_ptr in (("ell_propagate_step", 8), ("argkmin", 11)):
+        argtypes, restype = _build.SIGNATURES[name]
+        assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
+        assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build.source_hash()) == 64
