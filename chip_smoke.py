@@ -1,40 +1,57 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of DynLP on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py                            # full run
+    python3 chip_smoke.py                                         # full run
     python3 chip_smoke.py --vertices 10000 --stream-vertices 20000   # shorter
 
 Phases (each prints its lines and its seconds; any failed check raises):
 
 1. Card and build: the card's name and power limit, and the build of the
-   CUDA kernels from ``src/repro_torch/csrc`` with nvcc's register report.
+   CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
+   started together) with nvcc's register report.
 2. Kernels against their plain PyTorch versions on the card: the frontier
-   sweep ``ell_propagate_step`` and the argkmin kernel, on edge cases and at
-   the main paths' widths, must give the same bits; components and the
-   supernode init agree with the CPU; a small stream through ``DynLP`` on
-   the card agrees with the CPU.
-3. First main path: ``DynLP`` (default backend, which must resolve to
-   ``ell_cuda``) over a ``gaussian_mixture_stream`` of 5,000-vertex batches
-   under the paper's 90/1/9 protocol (``--vertices``, 40,000 by default).
-   The sweep kernel's launches must equal the sweeps; the last batch's
-   solve, run again with ``backend="ref"``, must agree within 20·δ;
-   accuracy against the ground truth must reach 0.99.
-4. Second main path: ``StreamEngine(g, delta=1e-4, ingest="device")``
-   (default backend) over the same stream at 100,000 vertices
-   (``--stream-vertices``), batch t+1 submitted before batch t is drained.
-   The backend must resolve to ``ell_cuda``; argkmin launches must equal
-   the batches with insertions and sweep launches the sweeps; every batch
-   must converge; accuracy must reach 0.99; after the first path's last
-   batch the engine's graph arrays and committed labels must equal the
-   first path's byte for byte (the streams share their prefix).  Per batch
-   it prints the host graph update, the argkmin kernel's device time, the
-   solve's time and how long ``submit`` took to return.
-5. Timing at the second path's inputs: the last batch's solve is run again
-   with every sweep's (F, frontier) kept; each sweep's kernel must give its
-   plain version's bits; the kernel and its plain version are timed on
-   every sweep, each beside its bound.  The last batch's argkmin inputs are
-   timed through the kernel, its plain version and a three-call library
-   yardstick (``matmul``, ``topk``, ``amax``), beside the bound.
+   sweep ``ell_propagate_step``, the argkmin kernel, the BSR SpMV
+   ``bsr_spmv`` and the Shiloach–Vishkin step ``cc_hook_step``, on edge
+   cases and at the main paths' widths, must give the same bits;
+   components and the supernode init agree with the CPU; small streams
+   through ``DynLP`` (default backend, and ``backend="bsr"``) on the card
+   agree with the CPU within 20·δ.
+3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
+   over a ``gaussian_mixture_stream`` of 5,000-vertex batches under the
+   paper's 90/1/9 protocol (``--vertices``, 20,000 by default).  The sweep
+   kernel's launches must equal the sweeps; the last batch's solve, run
+   again with ``backend="ref"``, must agree within 20·δ; accuracy against
+   the ground truth must reach 0.99.
+4. Path 2: ``StreamEngine(g, delta=1e-4, ingest="device")`` (default
+   backend, ``ell_cuda``) over the same stream and the same number of
+   vertices, batch t+1 submitted before batch t is drained.  argkmin
+   launches must equal the batches with insertions and sweep launches the
+   sweeps; every batch must converge; accuracy must reach 0.99; after the
+   last batch the engine's graph arrays and committed labels must equal
+   path 1's byte for byte.
+5. Path 3: ``StreamEngine(g, delta=1e-4, ingest="device", backend="bsr")``
+   over the same stream at 100,000 vertices (``--stream-vertices``),
+   pipelined.  Every solved batch must run on ``bsr`` with no slot-budget
+   overflow; SpMV launches must equal the sweeps, argkmin launches the
+   batches with insertions, sweep-kernel launches zero; every batch must
+   converge; accuracy must reach 0.99; after path 2's last batch the
+   graph arrays must equal path 2's byte for byte and the committed labels
+   agree within 2e-3 (the reference's bound between ``bsr`` and ``ref``).
+   Per batch it prints submit, host update, reorder + layout and solve
+   times, the slot budget and the tile fill.
+6. The ``cc`` entry point: ``connected_components_cuda`` on path 3's last
+   snapshot must equal ``connected_components`` on the card and
+   ``host_components``; its kernel launches must equal its iterations.
+7. Timing at path 3's last batch: the SpMV on every sweep of the solve
+   (each sweep's result equal to its plain version's bits) against its
+   plain version, PyTorch's BSR product and its bound; the whole solve on
+   ``bsr`` against ``ell_cuda`` on the unpermuted problem; ``bsr`` against
+   ``ref`` on the staged problem (the same iterates within 1e-5 over a
+   fixed number of sweeps with every row on, the same predictions where
+   |F − 0.5| > 20·δ, the δ-stopped gap printed); the sweep kernel on every sweep of the
+   ``ell_cuda`` solve; argkmin at the last batch's inputs against its
+   plain version and a three-call library yardstick; ``cc_hook_step`` on
+   every step of phase 6.  Each beside its bound.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -50,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -58,7 +76,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.core import dynlp as dynlp_module  # noqa: E402
-from repro_torch.core.components import connected_components  # noqa: E402
+from repro_torch.core import stream as stream_module  # noqa: E402
+from repro_torch.core.components import connected_components, host_components  # noqa: E402
+from repro_torch.core.snapshot import LabelView  # noqa: E402
 from repro_torch.core.dynlp import DynLP  # noqa: E402
 from repro_torch.core.stream import StreamEngine  # noqa: E402
 from repro_torch.core.init_labels import supernode_init  # noqa: E402
@@ -70,11 +90,16 @@ from repro_torch.ingest import incremental_knn  # noqa: E402
 from repro_torch.kernels._build import load_library  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
 from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref  # noqa: E402
+from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref  # noqa: E402
+from repro_torch.kernels.cc_hook import (cc_hook_ref, cc_hook_step,  # noqa: E402
+                                         connected_components_cuda)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
+from repro_torch.state import problem_from_arrays  # noqa: E402
 
 DELTA = 1e-4
 TOL = 20 * DELTA  # port vs port across backends/devices (the reference's own bound)
+BSR_ATOL = 2e-3  # a bsr stream against an ELL one (the reference's test bound)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -103,6 +128,7 @@ class Phase:
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
 
 
 def _enqueue(calls):
@@ -262,6 +288,79 @@ def argkmin_bound(inp):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, nbytes
 
 
+def bsr_inputs(rng, r, j, bs, c, empty=0.3, bare_rows=0.0, dtype=torch.float32):
+    """Random row-padded BSR SpMV inputs on the card (made with numpy): a
+    share ``empty`` of the slots empty (-1, zero tile), and ``bare_rows``
+    of the block rows with no slot at all."""
+    cols = rng.integers(0, c, size=(r, j)).astype(np.int32)
+    cols[rng.random((r, j)) < empty] = -1
+    cols[rng.random(r) < bare_rows] = -1
+    blocks = rng.normal(0, 1, (r, j, bs, bs)).astype(np.float32)
+    blocks[cols < 0] = 0.0
+    x = rng.normal(0, 1, c * bs).astype(np.float32)
+    return [torch.from_numpy(blocks).to(dtype).cuda(), torch.from_numpy(cols).cuda(),
+            torch.from_numpy(x).to(dtype).cuda()]
+
+
+def check_bsr(name, args):
+    """The SpMV kernel against its plain version: the same bits."""
+    got = bsr_spmv(*args)
+    want = bsr_spmv_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    r, j, bs, _ = args[0].shape
+    print(f"   bsr_spmv {name:<22} R={r:<6} J={j:<4} BS={bs:<4} C={args[2].shape[0] // bs:<6} "
+          f"{str(args[0].dtype)[6:]:<8} slots={int((args[1] >= 0).sum()):<8} "
+          f"max|dy|={err:.1e} bitwise={same}")
+    require(same and err == 0.0, f"bsr_spmv {name}: kernel != plain version")
+    return err
+
+
+def bsr_bound(blocks, cols, x):
+    """The least time (ms) an H100 takes for one SpMV on these inputs.
+    Bytes: the tiles of the occupied slots (an empty slot's tile is never
+    read), every column id, x and y once.  Operations: a multiply and an
+    add per tile entry of the occupied slots."""
+    r, j, bs, _ = blocks.shape
+    occupied = int((cols >= 0).sum())
+    nbytes = occupied * bs * bs * blocks.element_size() + 4 * r * j + \
+        x.numel() * x.element_size() + 4 * r * bs
+    flops = 2 * occupied * bs * bs
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), nbytes
+
+
+def cc_inputs(rng, n, k, pad):
+    """A random ELL adjacency (a share ``pad`` of the lanes -1) and a
+    random parent vector, on the card."""
+    nbr = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    nbr[rng.random((n, k)) < pad] = -1
+    return [torch.from_numpy(nbr).cuda(),
+            torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()]
+
+
+def check_cc(name, args):
+    """The hook kernel against its plain version: exactly equal."""
+    got = cc_hook_step(*args)
+    want = cc_hook_ref(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    n, k = args[0].shape
+    print(f"   cc_hook_step {name:<18} N={n:<7} K={k:<3} equal={same} "
+          f"moved={int((got != args[1]).sum())}")
+    require(same, f"cc_hook_step {name}: kernel != plain version")
+    return 0.0 if same else float("inf")
+
+
+def cc_bound(n, k):
+    """The least time (ms) for one hook step over (N, K): nbr read once, par
+    read for the own entry and the jump, out written, N·(4K + 12) bytes
+    (the neighbor gathers of par are L2 hits)."""
+    nbytes = n * (4 * k + 12)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
 def phase_kernels():
     rng = np.random.default_rng(0)
     errs = [
@@ -297,6 +396,28 @@ def phase_kernels():
     require(torch.equal(argkmin_candidates(*inp["args"], inp["base"], inp["slack"],
                                            k=5)[2], old),
             "argkmin: the -inf kth rows are not exactly the displaced rows")
+
+    # the SpMV: the main path's width (block rows of 107,200 rows at BS = 8,
+    # a 128-slot budget about half full), then the edge cases
+    bsr_errs = [check_bsr(name, bsr_inputs(rng, *shape, **kw)) for name, shape, kw in (
+        ("main-path width", (13_400, 128, 8, 13_400), dict(empty=0.45)),
+        ("every slot empty", (64, 4, 8, 64), dict(empty=1.0)),
+        ("block rows w/o slots", (300, 6, 8, 300), dict(empty=0.2, bare_rows=0.5)),
+        ("J=1", (500, 1, 16, 500), dict(empty=0.1)),
+        ("C > R", (40, 5, 32, 97), {}),
+        ("C < R", (60, 4, 8, 20), {}),
+        ("BS=128", (6, 3, 128, 9), dict(empty=0.2)),
+        ("bfloat16", (80, 7, 8, 80), dict(bare_rows=0.1, dtype=torch.bfloat16)),
+    )]
+    # the hook step: the main path's width (path 3's last snapshot), then
+    # the edge cases
+    cc_errs = [check_cc(name, cc_inputs(rng, *shape)) for name, shape in (
+        ("main-path width", (107_200, 24, 0.4)),
+        ("K=1", (1000, 1, 0.5)),
+        ("every lane PAD", (777, 5, 1.0)),
+        ("K=0", (300, 0, 0.0)),
+        ("N % 256 != 0", (4097, 8, 0.1)),
+    )]
 
     # components: exact integers, so the card must match the CPU exactly
     n = 20_000
@@ -342,7 +463,24 @@ def phase_kernels():
     require(diff <= TOL, "small stream: card vs CPU beyond 20*delta")
     require(np.array_equal(gc.f[ids][far] >= 0.5, gg.f[ids][far] >= 0.5),
             "small stream: predictions differ away from the cutoff")
-    return max(errs), max(argkmin_errs)
+
+    # the same stream through DynLP(backend="bsr"): card vs CPU
+    gc, gg = DynamicGraph(16, 5), DynamicGraph(16, 5)
+    dc = DynLP(gc, delta=DELTA, backend="bsr", device="cpu")
+    dg = DynLP(gg, delta=DELTA, backend="bsr")
+    before = bsr_spmv.launches
+    sweeps = 0
+    for batch, _ in gaussian_mixture_stream(spec):
+        sc, sg = dc.step(batch), dg.step(batch)
+        sweeps += sg.iterations
+        print(f"   small bsr stream: iterations cpu={sc.iterations} card={sg.iterations}")
+    ids = np.flatnonzero(gc.alive & (gc.labels == -1))
+    diff = float(np.abs(gc.f[ids] - gg.f[ids]).max())
+    print(f"   small bsr stream: max|F card - F cpu|={diff:.1e} (bound {TOL:.0e}); "
+          f"SpMV launches {bsr_spmv.launches - before} for {sweeps} sweeps")
+    require(diff <= TOL, "small bsr stream: card vs CPU beyond 20*delta")
+    require(bsr_spmv.launches - before == sweeps > 0, "small bsr stream: launches != sweeps")
+    return max(errs), max(argkmin_errs), max(bsr_errs), max(cc_errs)
 
 
 def phase_main(vertices, batch_size):
@@ -368,6 +506,7 @@ def phase_main(vertices, batch_size):
     dynlp_module.run_propagation = recording
     truth = np.zeros(vertices, np.int8)
     sweeps = 0
+    views = []
     ell_propagate_step.launches = 0
     try:
         for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
@@ -382,6 +521,7 @@ def phase_main(vertices, batch_size):
                   f"U={st.num_unlabeled:6d} (U,K)={shape} converged={st.converged}",
                   flush=True)
             require(st.converged, f"batch {t} did not converge")
+            views.append(LabelView.from_graph(g, t + 1))
     finally:
         dynlp_module.run_propagation = run_propagation
     launches = ell_propagate_step.launches
@@ -408,24 +548,32 @@ def phase_main(vertices, batch_size):
           f"{last['res'].iterations}/{ref.iterations} predictions_equal={same_pred}")
     require(diff <= TOL, "ell_cuda vs ref beyond 20*delta")
     require(same_pred, "ell_cuda vs ref predictions differ away from the cutoff")
-    return g, t + 1, launches
+    return dict(graph={name: getattr(g, name).copy() for name in GRAPH}, views=views), launches
 
 
 GRAPH = ("src", "dst", "wgt", "knn_idx", "knn_wgt")
 
 
-def phase_stream(vertices, batch_size, ref_graph, ref_batches):
-    """``StreamEngine(ingest="device")`` over the stream, batch t+1 submitted
-    before batch t is drained.  Wrappers observe (and do not change) each
-    batch's host graph update, argkmin launch and solve."""
-    require(vertices >= ref_graph.num_nodes, "the engine's stream must cover the first path's")
+def phase_stream(vertices, batch_size, prefix, backend=None):
+    """``StreamEngine(ingest="device", backend=backend)`` over the stream,
+    batch t+1 submitted before batch t is drained.  Wrappers observe (and
+    do not change) each batch's host graph update, argkmin launch, staging
+    and solve.  ``prefix`` holds an earlier path's graph arrays after its
+    last batch and its committed labels after every batch: the graph must
+    be equal byte for byte; the labels byte for byte on the same backend,
+    within ``BSR_ATOL`` on ``bsr``."""
+    ref_batches = len(prefix["views"])
     spec = StreamSpec(total_vertices=vertices, batch_size=batch_size, seed=42,
                       class_sep=6.0, noise=0.9)
+    require(spec.total_vertices // batch_size >= ref_batches,
+            "the engine's stream must cover the earlier path's")
+    want = backend or "ell_cuda"
     g = DynamicGraph(emb_dim=spec.emb_dim, k=5)
-    eng = StreamEngine(g, delta=DELTA, ingest="device")
-    per, solves, last, last_argkmin = {}, [], {}, {}
+    eng = StreamEngine(g, delta=DELTA, ingest="device", backend=backend)
+    per, solves, last, last_argkmin, staged = {}, [], {}, {}, {}
     cur = [0]
-    real_apply = g.apply_batch
+    real_apply, real_stage = g.apply_batch, eng._stage_single
+    real_layout = stream_module.ell_bsr_layout
 
     def apply_batch(*a, **kw):
         t0 = time.perf_counter()
@@ -442,6 +590,18 @@ def phase_stream(vertices, batch_size, ref_graph, ref_batches):
         last_argkmin.update(args=[t.clone() for t in a[:5]], base=a[5], slack=a[6], k=kw["k"])
         return out
 
+    def stage_timed(host):  # the backend decision, and for bsr reorder + layout
+        t0 = time.perf_counter()
+        st = real_stage(host)
+        per[cur[0]].update(stage_ms=(time.perf_counter() - t0) * 1e3, budget=st.num_slots)
+        staged.update(host=host, st=st)
+        return st
+
+    def layout_seen(nbr, block_size):
+        bl = real_layout(nbr, block_size)
+        per[cur[0]]["fill"] = bl.fill
+        return bl
+
     def solve_timed(problem, f0, frontier0, **kw):  # runs on the engine's solve thread
         t0 = time.perf_counter()
         res = run_propagation(problem, f0, frontier0, **kw)
@@ -453,34 +613,53 @@ def phase_stream(vertices, batch_size, ref_graph, ref_batches):
         return res
 
     truth = np.zeros(vertices, np.int8)
-    stats, inserts, snap = [], 0, {}
+    stats, inserts, snap, views, prefix_diff = [], 0, {}, [], [0.0]
 
     def report(i, st):
         stats.append(st)
         r = per[i]
         ak = r["argkmin"][0].elapsed_time(r["argkmin"][1]) if "argkmin" in r else 0.0
+        tiles = (f" stage {r['stage_ms']:6.1f} ms slots {r['budget']:3d} fill {r['fill']:.4f}"
+                 if st.backend == "bsr" else "")
         print(f"   batch {i:2d}: submit {r['submit_ms']:8.1f} ms  host update "
-              f"{r['apply_ms']:8.1f} ms (argkmin {ak:6.2f} ms)  solve {solves[i]:7.1f} ms  "
-              f"iterations={st.iterations:4d} U={st.num_unlabeled:6d} (U,K)={st.bucket} "
+              f"{r['apply_ms']:8.1f} ms (argkmin {ak:6.2f} ms){tiles}  solve {solves[i]:7.1f} ms"
+              f"  iterations={st.iterations:4d} U={st.num_unlabeled:6d} (U,K)={st.bucket} "
               f"backend={st.backend} converged={st.converged}", flush=True)
         require(st.converged, f"engine batch {i} did not converge")
-        require(st.backend == "ell_cuda", f"engine batch {i} ran on {st.backend!r}")
-        if i == ref_batches - 1:  # the first path's last batch: compare
+        require(st.backend == want, f"engine batch {i} ran on {st.backend!r}, want {want!r}")
+        view = eng.committed_view()
+        views.append(view)
+        if i < ref_batches:  # the earlier path's batch i: compare the labels
+            pv = prefix["views"][i]
+            ids = np.flatnonzero(pv.alive & (pv.labels == UNLABELED))
+            d = float(np.abs(view.f[ids] - pv.f[ids]).max(initial=0.0))
+            prefix_diff[0] = max(prefix_diff[0], d)
+            if backend is None:
+                for name in ("f", "labels", "alive"):
+                    require(getattr(view, name).tobytes() == getattr(pv, name).tobytes(),
+                            f"engine committed {name} != the earlier path's after batch {i}")
+            else:
+                require(view.labels.tobytes() == pv.labels.tobytes()
+                        and view.alive.tobytes() == pv.alive.tobytes(),
+                        f"engine labels/alive != the earlier path's after batch {i}")
+                require(d <= BSR_ATOL, f"batch {i}: |dF| {d} against the earlier path "
+                        f"beyond {BSR_ATOL}")
+        if i == ref_batches - 1:
             for name in GRAPH:
-                require(snap[name].tobytes() == getattr(ref_graph, name).tobytes(),
-                        f"engine {name} != DynLP's after batch {i}")
-            view = eng.committed_view()
-            for name in ("f", "labels", "alive"):
-                require(getattr(view, name).tobytes() == getattr(ref_graph, name).tobytes(),
-                        f"engine committed {name} != DynLP's after batch {i}")
-            print(f"   after batch {i} ({ref_graph.num_nodes} vertices): engine graph "
-                  f"{'/'.join(GRAPH)} and committed labels == DynLP's, byte for byte")
+                require(snap[name].tobytes() == prefix["graph"][name].tobytes(),
+                        f"engine {name} != the earlier path's after batch {i}")
+            print(f"   after batch {i}: engine graph {'/'.join(GRAPH)} == the earlier "
+                  f"path's byte for byte; committed labels max|dF| {prefix_diff[0]:.2e} "
+                  f"over batches 0-{i}")
 
     g.apply_batch = apply_batch
+    eng._stage_single = stage_timed
+    stream_module.ell_bsr_layout = layout_seen
     incremental_knn.argkmin_candidates = argkmin_timed
     ops_module.run_propagation = solve_timed
     ell_propagate_step.launches = 0
     argkmin_candidates.launches = 0
+    bsr_spmv.launches = 0
     try:
         for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
             cur[0] = t
@@ -499,24 +678,38 @@ def phase_stream(vertices, batch_size, ref_graph, ref_batches):
         eng.close()
     finally:
         del g.apply_batch
+        del eng._stage_single
+        stream_module.ell_bsr_layout = real_layout
         incremental_knn.argkmin_candidates = argkmin_candidates
         ops_module.run_propagation = run_propagation
-    ell_launches, argkmin_launches = ell_propagate_step.launches, argkmin_candidates.launches
+    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
+                    bsr=bsr_spmv.launches)
     sweeps = sum(st.iterations for st in stats)
-    print(f"   batches={len(stats)} with insertions={inserts} argkmin launches="
-          f"{argkmin_launches}; sweeps={sweeps} sweep-kernel launches={ell_launches}")
-    require(argkmin_launches == inserts > 0, "argkmin launches != batches with insertions")
-    require(ell_launches == sweeps > 0, "sweep-kernel launches != sweeps")
-    require(len(solves) == len(stats) and all(s.backend == "ell_cuda" for s in stats),
-            "a batch skipped its solve")
+    print(f"   batches={len(stats)} with insertions={inserts}; sweeps={sweeps}; launches: "
+          f"argkmin {launches['argkmin']}, sweep kernel {launches['ell']}, "
+          f"SpMV {launches['bsr']}")
+    require(launches["argkmin"] == inserts > 0, "argkmin launches != batches with insertions")
+    solver = "bsr" if backend == "bsr" else "ell"
+    require(launches[solver] == sweeps > 0, f"{solver} kernel launches != sweeps")
+    require(launches["ell" if solver == "bsr" else "bsr"] == 0,
+            "a kernel of the other backend was launched")
+    require(len(solves) == len(stats), "a batch skipped its solve")
+    if backend == "bsr":
+        summary = eng.transport_summary()
+        print(f"   transport_summary: {json.dumps(summary)}")
+        require(summary["backend_overflows"] == 0 and summary["bsr_batches"] == len(stats),
+                "a bsr batch overflowed its slot budget")
     # submit(t) returns once batch t is staged and its solve queued; it
     # waits only for batch t-1's solve (its drain), never for its own
     sub = np.array([per[i]["submit_ms"] for i in range(len(stats))])
     upd = np.array([per[i]["apply_ms"] for i in range(len(stats))])
+    stg = np.array([per[i].get("stage_ms", 0.0) for i in range(len(stats))])
     print(f"   per batch, median (max): submit returned in {np.median(sub):.1f} "
           f"({sub.max():.1f}) ms, of which host update {np.median(upd):.1f} "
-          f"({upd.max():.1f}) ms; its own solve then ran {np.median(solves):.1f} "
-          f"({max(solves):.1f}) ms behind it; store {eng.ingestor.store.capacity} rows, "
+          f"({upd.max():.1f}) ms and staging decision {np.median(stg):.1f} ({stg.max():.1f}) "
+          f"ms; its own solve then ran {np.median(solves):.1f} ({max(solves):.1f}) ms "
+          f"behind it; sums: submit {sub.sum() / 1e3:.1f} s, solve {sum(solves) / 1e3:.2f} s; "
+          f"store {eng.ingestor.store.capacity} rows, "
           f"{eng.ingestor.store.device_bytes() / 1e6:.1f} MB on the card")
 
     ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
@@ -524,8 +717,9 @@ def phase_stream(vertices, batch_size, ref_graph, ref_batches):
     acc = accuracy((g.f[ids] >= 0.5).astype(np.int8), truth[ids])
     print(f"   accuracy vs ground truth: {acc:.4f} over {len(ids)} vertices")
     require(acc >= 0.99, f"accuracy {acc} < 0.99")
-    return dict(last=last, argkmin=last_argkmin, ell_launches=ell_launches,
-                argkmin_launches=argkmin_launches)
+    return dict(last=last, argkmin=last_argkmin, launches=launches, staged=staged,
+                prefix=dict(graph={name: getattr(g, name).copy() for name in GRAPH},
+                            views=views))
 
 
 def phase_timing(last):
@@ -631,12 +825,222 @@ def phase_argkmin_timing(inp):
                 max_abs_err=err)
 
 
+def library_times(fn, reps):
+    """Device times (ms) of a library call: behind the checked sleep, or,
+    when the call waits on the card itself (so nothing can be queued behind
+    a sleep), CUDA events around each call after a warm-up, said so."""
+    try:
+        return gpu_times([fn] * reps, per_sleep=1)
+    except AssertionError:
+        print("   the library call waits on the card; timed with bare CUDA events")
+        pairs = _enqueue([fn] * reps)
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in pairs]
+
+
+def _wall_ms(fn, reps=3):
+    """Median host-clock time (ms) of ``fn`` run to the end on the card."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_cc(nbr_host):
+    """The ``cc`` entry point on a snapshot's ELL adjacency: the labels must
+    equal ``connected_components`` on the card and ``host_components``,
+    and the kernel must be launched once per iteration."""
+    nbr = torch.from_numpy(nbr_host).cuda()
+    cc_hook_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    par, iters = connected_components_cuda(nbr)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = cc_hook_step.launches
+    want = connected_components(nbr).labels
+    host = host_components(nbr_host)
+    n_comp = int((par == torch.arange(len(par), device=par.device, dtype=par.dtype)).sum())
+    print(f"   connected_components_cuda on (N, K)={tuple(nbr.shape)}: {iters} iterations, "
+          f"{launches} kernel launches, {wall:.1f} ms; {n_comp} components")
+    require(torch.equal(par, want.to(par.dtype)), "connected_components_cuda != "
+            "connected_components on the card")
+    require(np.array_equal(par.cpu().numpy(), host), "connected_components_cuda != "
+            "host_components")
+    require(launches == iters > 0, "cc_hook_step launches != iterations")
+    print("   labels == connected_components (card) == host_components")
+    return dict(nbr=nbr, par=par, launches=launches, iterations=iters)
+
+
+def phase_bsr_timing(out):
+    """Path 3's last batch: its solve again with every sweep's SpMV inputs
+    kept (each sweep's kernel result equal to its plain version's bits);
+    the SpMV timed against its plain version, PyTorch's BSR product and its
+    bound; the solve on ``bsr`` against ``ell_cuda`` on the unpermuted
+    problem and ``ref`` on the staged problem.  Returns the
+    record's numbers and the ``ell_cuda`` solve's inputs for the sweep
+    kernel's timing."""
+    last, host, st = out["last"], out["staged"]["host"], out["staged"]["st"]
+    require(st.backend == "bsr", "path 3's last batch was not staged on bsr")
+    p, kw = last["problem"], last["kw"]
+    sweeps = []
+
+    def keep(*args):
+        sweeps.append(args)
+        return bsr_spmv(*args)
+
+    ops_module.bsr_spmv = keep
+    try:
+        res = run_propagation(p, last["f0"], last["frontier0"], **kw)
+    finally:
+        ops_module.bsr_spmv = bsr_spmv
+    require(torch.equal(res.f, last["res"].f) and res.iterations == len(sweeps)
+            == last["res"].iterations, "the last batch's bsr solve did not repeat itself")
+    err = check_bsr("main-path first sweep", sweeps[0])
+    for args in sweeps[1:]:
+        require(torch.equal(bsr_spmv(*args).view(torch.int32),
+                            bsr_spmv_ref(*args).view(torch.int32)),
+                "a main-path SpMV: kernel != plain version")
+    blocks, cols, x = sweeps[0]
+    r, j, bs, _ = blocks.shape
+    occupied = int((cols >= 0).sum())
+    print(f"   all {len(sweeps)} SpMVs of the last batch: kernel == plain version bitwise; "
+          f"tiles (R, J, BS)=({r}, {j}, {bs}), {occupied} occupied slots "
+          f"({occupied / (r * j):.3f} of the budget), {blocks.numel() * 4 / 1e9:.3f} GB")
+
+    k_ms = gpu_times([lambda a=a: bsr_spmv(*a) for a in sweeps], per_sleep=100)
+    p_ms = gpu_times([lambda a=a: bsr_spmv_ref(*a) for a in sweeps[:5]], per_sleep=1)
+    # the library yardstick: PyTorch's BSR product over the occupied tiles,
+    # converted outside the timed region; the port calls it nowhere
+    valid = cols >= 0
+    crow = torch.zeros(r + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = valid.sum(1).cumsum(0)
+    with warnings.catch_warnings():  # "BSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        lib_a = torch.sparse_bsr_tensor(crow, cols[valid].long(), blocks[valid],
+                                        size=(r * bs, x.numel()), check_invariants=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y_lib = (lib_a @ x[:, None])[:, 0]
+        lib_name = "torch.sparse_bsr_tensor @ x"
+
+        def library():
+            lib_a @ x[:, None]
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"   the BSR product is refused ({type(exc).__name__}: {str(exc)[:120]}); "
+              "the yardstick is a gather plus einsum")
+        idx = cols.clamp(min=0).long()
+        y_lib = torch.einsum("rjab,rjb->ra", blocks, x.view(-1, bs)[idx]).reshape(-1)
+        lib_name = "gather + einsum"
+
+        def library():
+            torch.einsum("rjab,rjb->ra", blocks, x.view(-1, bs)[idx])
+    y = bsr_spmv(blocks, cols, x)
+    lib_err = float((y_lib - y).abs().max())
+    require(lib_err <= 1e-4 * max(1.0, float(y.abs().max())),
+            f"the library yardstick computes another product (max|dy| {lib_err})")
+    l_ms = library_times(library, 20)
+    b_ms, by, nbytes = bsr_bound(blocks, cols, x)
+    all_slots = (r * j * bs * bs * 4) / HBM_BYTES_PER_S * 1e3
+    km, pm, lm = (statistics.median(t) for t in (k_ms, p_ms, l_ms))
+    print(f"   SpMV per launch: kernel {km:.4f} ms (mean {np.mean(k_ms):.4f} over "
+          f"{len(k_ms)})  plain {pm:.3f} ms  library ({lib_name}, fp32) {lm:.4f} ms "
+          f"(max|dy| vs kernel {lib_err:.1e})  bound {b_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+          f"3.35 TB/s, {by}; every slot's tile: {all_slots:.4f} ms)  "
+          f"kernel/bound {km / b_ms:.2f}x  kernel/library {km / lm:.2f}x")
+
+    # the whole solve: bsr on the staged problem, ell_cuda on the unpermuted
+    # one (the same rows before the component order), ref on the staged one
+    up = problem_from_arrays(host.nbr, host.wgt, host.wl0, host.wl1, host.valid,
+                             device="cuda")
+    perm = torch.from_numpy(st.perm).cuda()
+    f0u = torch.empty_like(last["f0"])
+    f0u[perm] = last["f0"]
+    fru = torch.empty_like(last["frontier0"])
+    fru[perm] = last["frontier0"]
+    ekw = {k: v for k, v in kw.items() if k in ("delta", "max_iters", "device")}
+    ell = run_propagation(up, f0u, fru, backend="ell_cuda", **ekw)
+    ref = run_propagation(p, last["f0"], last["frontier0"], backend="ref", **ekw)
+    rows = torch.from_numpy(st.rows).cuda()
+    d_ell = float((res.f[rows] - ell.f[: len(rows)]).abs().max())
+    gap = (res.f - ref.f)[p.valid].abs()
+    d_ref = float(gap.max())
+    bsr_ms = _wall_ms(lambda: run_propagation(p, last["f0"], last["frontier0"], **kw))
+    ell_ms = _wall_ms(lambda: run_propagation(up, f0u, fru, backend="ell_cuda", **ekw))
+    print(f"   whole solve of the last batch: bsr {bsr_ms:.1f} ms ({res.iterations} sweeps, "
+          f"{bsr_ms / max(res.iterations, 1):.3f} ms a sweep)  ell_cuda {ell_ms:.1f} ms "
+          f"({ell.iterations} sweeps, {ell_ms / max(ell.iterations, 1):.3f} ms a sweep)  "
+          f"bsr/ell {bsr_ms / ell_ms:.2f}x")
+    # Each backend stops a row once it and its neighbors move by <= delta;
+    # the two sum in different orders, so the rows that straddle delta
+    # differ, and so do the sweeps each row gets: the stopped labels
+    # differ by tens of delta on this graph, whichever is nearer the
+    # fixpoint.  The delta-stopped gap is printed; what is held is that
+    # the two compute the same iteration (a fixed number of sweeps with
+    # every row kept on, within a few ULPs) and the same hard predictions
+    # away from the cutoff.
+    far = (ref.f - 0.5).abs() > TOL
+    same_pred = torch.equal((res.f >= 0.5)[p.valid & far], (ref.f >= 0.5)[p.valid & far])
+    print(f"   delta-stopped: max|F bsr - F ell_cuda|={d_ell:.3e}  max|F bsr - F ref| "
+          f"(staged)={d_ref:.3e} = {d_ref / DELTA:.2f} delta, {int((gap > TOL).sum())} of "
+          f"{int(p.valid.sum())} rows beyond 20 delta; ref {ref.iterations} sweeps; "
+          f"predictions equal where |F - 0.5| > 20 delta: {same_pred}")
+    fixed = dict(ekw, delta=0.0, max_iters=res.iterations)
+    every = p.valid.clone()
+    fb = run_propagation(p, last["f0"], every, **dict(kw, **fixed))
+    fr = run_propagation(p, last["f0"], every, backend="ref", **fixed)
+    d_fix = float((fb.f - fr.f)[p.valid].abs().max())
+    print(f"   {fb.iterations} sweeps with every row on (delta=0): max|F bsr - F ref|="
+          f"{d_fix:.2e} (bound 1e-05)")
+    require(res.converged and ell.converged and ref.converged, "a re-solve did not converge")
+    require(fb.iterations == fr.iterations == res.iterations, "the fixed sweeps stopped early")
+    require(d_fix <= 1e-5, "bsr and ref compute different iterations")
+    require(same_pred, "bsr vs ref predictions differ away from the cutoff")
+    rec = dict(ms=float(np.mean(k_ms)), plain_ms=float(np.mean(p_ms)), library_ms=lm,
+               bound_ms=b_ms, bound_by=by, max_abs_err=err)
+    return rec, dict(problem=up, f0=f0u, frontier0=fru, res=ell, kw=ekw)
+
+
+def phase_cc_timing(cc):
+    """``cc_hook_step`` on every step of the ``cc`` entry point's run (the
+    same loop, each step's parents kept), each step's result equal to its
+    plain version's, timed beside the bound."""
+    nbr = cc["nbr"]
+    par = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
+    steps = []
+    while True:
+        steps.append((nbr, par))
+        new = cc_hook_step(nbr, par)
+        require(torch.equal(new, cc_hook_ref(nbr, par)),
+                "a main-path hook step: kernel != plain version")
+        moved = bool((new != par).any())
+        par = new
+        if not moved:
+            break
+    require(len(steps) == cc["iterations"] and torch.equal(par, cc["par"]),
+            "the cc run did not repeat itself")
+    k_ms = gpu_times([lambda a=a: cc_hook_step(*a) for a in steps] * 10, per_sleep=100)
+    p_ms = gpu_times([lambda a=a: cc_hook_ref(*a) for a in steps], per_sleep=1)
+    n, k = nbr.shape
+    b_ms, by, nbytes = cc_bound(n, k)
+    km, pm = float(np.mean(k_ms)), float(np.mean(p_ms))
+    print(f"   cc_hook_step (N, K)=({n}, {k}), {len(steps)} steps, each == plain version: "
+          f"kernel {km * 1e3:.2f} us  plain {pm * 1e3:.1f} us  bound {b_ms * 1e3:.2f} us "
+          f"({nbytes / 1e6:.2f} MB at 3.35 TB/s, {by})  kernel/bound {km / b_ms:.2f}x  "
+          f"library: no single PyTorch call")
+    return dict(ms=km, plain_ms=pm, bound_ms=b_ms, bound_by=by, max_abs_err=0.0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # the first path's host kNN (numpy, O(N^2) over a stream) takes most of
-    # its time, so it stops at 40,000 vertices; the second path, with the
-    # candidate search on the card, runs the full 100,000
-    ap.add_argument("--vertices", type=int, default=40_000)
+    # the first path's host kNN (numpy, O(N^2) over a stream) and the
+    # flagged-row merges of the host update take most of the run, so paths
+    # 1 and 2 stop at 20,000 vertices; path 3 runs the full 100,000
+    ap.add_argument("--vertices", type=int, default=20_000)
     ap.add_argument("--stream-vertices", type=int, default=100_000)
     ap.add_argument("--batch", type=int, default=5_000)
     args = ap.parse_args(argv)
@@ -657,32 +1061,54 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"   nvcc: {line.strip()}")
     with Phase("kernels vs plain versions on the card"):
-        sweep_err, argkmin_err = phase_kernels()
-    with Phase("main path 1: DynLP.step over the stream"):
-        dyn_graph, dyn_batches, dyn_launches = phase_main(args.vertices, args.batch)
-    with Phase("main path 2: StreamEngine(ingest='device') over the stream"):
-        out = phase_stream(args.stream_vertices, args.batch, dyn_graph, dyn_batches)
-    with Phase("timing at the main path's shapes"):
-        tm = phase_timing(out["last"])
-        ta = phase_argkmin_timing(out["argkmin"])
+        sweep_err, argkmin_err, bsr_err, cc_err = phase_kernels()
+    with Phase("path 1: DynLP.step over the stream"):
+        prefix, dyn_launches = phase_main(args.vertices, args.batch)
+    with Phase("path 2: StreamEngine(ingest='device') over the stream"):
+        out2 = phase_stream(args.vertices, args.batch, prefix)
+    with Phase("path 3: StreamEngine(ingest='device', backend='bsr') over the stream"):
+        out3 = phase_stream(args.stream_vertices, args.batch, out2["prefix"], backend="bsr")
+    with Phase("the cc entry point on path 3's last snapshot"):
+        cc = phase_cc(out3["staged"]["host"].nbr)
+    with Phase("timing at path 3's last batch"):
+        tb, ell_last = phase_bsr_timing(out3)
+        tm = phase_timing(ell_last)
+        ta = phase_argkmin_timing(out3["argkmin"])
+        tc = phase_cc_timing(cc)
     record = {"kernels": [{
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
         "replaces": "src/repro/kernels/ell_propagate.py:58",
-        "launches": out["ell_launches"], "max_abs_err": max(sweep_err, tm["max_abs_err"]),
+        "launches": out2["launches"]["ell"], "max_abs_err": max(sweep_err, tm["max_abs_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
     }, {
         "name": "argkmin", "route": "cuda",
         "source": "src/repro_torch/csrc/argkmin.cu",
         "replaces": "src/repro/kernels/argkmin.py:117",
-        "launches": out["argkmin_launches"],
+        "launches": out3["launches"]["argkmin"],
         "max_abs_err": max(argkmin_err, ta["max_abs_err"]),
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
         "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
+    }, {
+        "name": "bsr_spmv", "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_spmv.cu",
+        "replaces": "src/repro/kernels/bsr_spmv.py:58",
+        "launches": out3["launches"]["bsr"], "max_abs_err": max(bsr_err, tb["max_abs_err"]),
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+    }, {
+        "name": "cc_hook_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/cc_hook.cu",
+        "replaces": "src/repro/kernels/cc_hook.py:34",
+        "launches": cc["launches"], "max_abs_err": max(cc_err, tc["max_abs_err"]),
+        "ms": tc["ms"], "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
+        "bound_by": tc["bound_by"], "library_ms": None,
     }]}
-    print(f"   DynLP path: {dyn_launches} sweep-kernel launches; engine path: "
-          f"{out['ell_launches']} sweep-kernel and {out['argkmin_launches']} argkmin launches")
+    print(f"   launches: path 1 (DynLP) {dyn_launches} sweep kernel; path 2 (engine, ell_cuda) "
+          f"{out2['launches']['ell']} sweep kernel, {out2['launches']['argkmin']} argkmin; "
+          f"path 3 (engine, bsr) {out3['launches']['bsr']} SpMV, "
+          f"{out3['launches']['argkmin']} argkmin; cc entry point {cc['launches']} hook")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(card_line())

@@ -89,7 +89,8 @@ class DynLP:
                 f"max_k={max_k!r} invalid; want an int, None (uncapped), "
                 "or 'auto' (4x the graph's kNN k)")
         self.max_k = 4 * graph.k if max_k == "auto" else max_k
-        # backend: kernels.ops dispatch (None/"auto", "ref", "ell_cuda").
+        # backend: kernels.ops dispatch (None/"auto", "ref", "ell_cuda",
+        # "bsr"; bsr orders and lays out each batch's problem itself).
         # auto_bucket=False builds at the exact (U, K) every batch.
         self.backend = backend
         self.auto_bucket = auto_bucket

@@ -95,6 +95,16 @@ def update_island(wgt, wl0, wl1, f, f_v, mask):
     return f + torch.where(wall > 0, d_f / torch.clamp_min(wall, 1e-30), zero)
 
 
+def bsr_update_island(y, wl1, wall, f):
+    """The ``bsr`` backend's per-row update: ``F' = (y + wl1) / Wall`` where
+    ``Wall > 0``, else ``F``.
+
+    ``y`` is the block-sparse aggregation ``Σ_v w(u,v)·F_v``; the weighted
+    average form (paper §5) replaces the Jacobi-delta form of
+    ``update_island`` because the SpMV gives the sum directly."""
+    return torch.where(wall > 0, (y + wl1) / torch.clamp_min(wall, 1e-30), f)
+
+
 def lp_update(problem: PropagationProblem, f: torch.Tensor) -> torch.Tensor:
     """One unmasked LP update for every row (paper Eq. in §4 / Alg.2 L28).
 

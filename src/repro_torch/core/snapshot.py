@@ -19,6 +19,7 @@ import logging
 import numpy as np
 import torch
 
+from repro_torch.core.components import permute_ell_rows
 from repro_torch.core.propagate import PropagationProblem
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import UNLABELED, DynamicGraph
@@ -113,6 +114,26 @@ class HostSnapshot:
     @property
     def bucket_key(self) -> tuple[int, int]:
         return self.nbr.shape
+
+
+def reorder_host_snapshot(host: HostSnapshot,
+                          order: np.ndarray) -> tuple[HostSnapshot, np.ndarray]:
+    """Permute a host snapshot's rows by ``order`` (new → old), remapping
+    neighbor ids to the new row space.
+
+    The ``bsr`` backend stages with the Step-1 component order
+    (``core.components.component_order``) so the adjacency densifies into
+    tiles.  Row order is invisible to the fixpoint; returns the permuted
+    snapshot and ``inv`` (old → new) for folding solved rows back.
+    """
+    if len(order) != len(host.valid):
+        raise ValueError(f"order has {len(order)} rows, snapshot has "
+                         f"{len(host.valid)}")
+    nbr, inv = permute_ell_rows(host.nbr, order)
+    return HostSnapshot(
+        nbr=nbr, wgt=host.wgt[order], wl0=host.wl0[order],
+        wl1=host.wl1[order], valid=host.valid[order],
+        unl_ids=host.unl_ids, remap=host.remap), inv
 
 
 def bucket(n: int, ratio: float = 1.3, floor: int = 256) -> int:

@@ -30,8 +30,17 @@ bits: the same host snapshot, supernode init and backend on the same inputs
 (tests/test_torch_stream.py).  The solve goes through the backend registry
 of ``kernels.ops``: each rung's backend is resolved once, at rung entry.
 
+A ``bsr`` rung stages every snapshot in the paper's Step-1 component order
+(``core.components.component_order``), so the adjacency densifies into
+tiles, derives the per-edge tile-slot map on the host
+(``kernels.bsr_spmv.ell_bsr_layout``) and fixes one tile-slot budget per
+rung.  A Δ_t whose slot requirement exceeds the rung's budget runs on
+``ell_cuda`` instead, warned once per rung and counted in
+``backend_overflows``.  Solved rows fold back through the order's inverse
+at ``drain``.
+
 Not ported yet (the engine does not define them): the mesh
-(``mesh=``/``transport=``, ``transport_summary``), the ``bsr`` and
+(``mesh=``/``transport=`` and the mesh keys of ``transport_summary``), the
 ``landmark`` staging, ``device_view`` (serving) and ``checkpoint`` /
 ``checkpoint_state`` / ``restore`` (persistence).
 """
@@ -46,14 +55,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.components import compact_labels
+from repro_torch.core.components import compact_labels, component_order
 from repro_torch.core.dynlp import gprime_components
 from repro_torch.core.init_labels import supernode_init
 from repro_torch.core.propagate import PropagateResult, PropagationProblem
-from repro_torch.core.snapshot import HostSnapshot, LabelView, build_host_problem
+from repro_torch.core.snapshot import (HostSnapshot, LabelView, bucket_k, build_host_problem,
+                                       reorder_host_snapshot)
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels.bsr_spmv import ell_bsr_layout
 
 logger = logging.getLogger(__name__)
 
@@ -71,7 +82,8 @@ class StreamStats:
     # (0, 0) for a no-op Δ_t whose empty frontier staged nothing
     recompiled: bool  # True iff this Δ_t allocated a rung's buffers first
     transport: str = "single"  # "single", or "none" (no-op Δ_t)
-    backend: str = "none"  # "ref" / "ell_cuda"; "none" for a no-op Δ_t
+    backend: str = "none"  # "ref" / "ell_cuda" / "bsr"; "none" for a no-op
+    # Δ_t; a bsr rung's slot-budget overflow shows up as an "ell_cuda" batch
 
 
 @dataclasses.dataclass
@@ -91,6 +103,21 @@ class _Pending:
     transport: str = "single"
     backend: str = "none"
     keep: tuple = ()  # device tensors the in-flight solve reads
+    # bsr batches were solved in component order: the solved row of
+    # original row i is rows[i] (None = staged unpermuted)
+    rows: np.ndarray | None = None
+
+
+@dataclasses.dataclass
+class _Staging:
+    """One Δ_t's staging decision: backend, row order, slot map."""
+
+    staged: HostSnapshot  # possibly row-permuted
+    backend: str
+    rows: np.ndarray | None = None  # original row -> staged row (fold-back)
+    perm: np.ndarray | None = None  # staged row -> original row (f0/frontier)
+    slot: np.ndarray | None = None  # bsr per-edge tile-slot map
+    num_slots: int = 0  # bsr tile-slot budget (0 otherwise)
 
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PropagationProblem))
@@ -146,6 +173,13 @@ class StreamEngine:
         if backend not in (None, "auto"):
             ops.backend_spec(backend)  # unknown names fail here, not mid-stream
         self.backend = backend
+        # only when bsr is among the backends the knob could resolve to
+        # does the engine pad rows to the tile edge and measure tile fill
+        self._backend_candidates = ops.backend_candidates(backend, device=self.device)
+        self._bsr_block = ops.bsr_block_size(self.device.type)
+        # every rung's rows must tile evenly into BSR block rows
+        self._row_multiple = (self._bsr_block if "bsr" in self._backend_candidates
+                              else None)
         # max_k caps the ELL neighbor axis (heaviest-edge truncation);
         # "auto" = 4x the graph's kNN k, None = uncapped
         if isinstance(max_k, str) and max_k != "auto":
@@ -155,8 +189,13 @@ class StreamEngine:
         self.max_k = 4 * graph.k if max_k == "auto" else max_k
         # per-engine max_k truncation-warning dedup
         self._max_k_warned: set[tuple[int, int]] = set()
-        # per-rung backend, resolved through the registry at rung entry
+        # per-rung backend, resolved through the registry at rung entry,
+        # and a bsr rung's tile-slot budget
         self._backend_modes: dict[tuple[int, int], str] = {}
+        self._slot_budgets: dict[tuple[int, int], int] = {}
+        self._slot_overflow_warned: set[tuple[int, int]] = set()
+        self.bsr_batches = 0  # batches solved on the bsr backend
+        self.backend_overflows = 0  # bsr batches sent to ell_cuda
         # bucket_key -> two generations of device problem buffers; the
         # generation toggles per commit so the in-flight solve never shares
         # storage with the snapshot being staged
@@ -176,14 +215,73 @@ class StreamEngine:
                       if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ #
-    def _rung_backend(self, key: tuple[int, int]) -> str:
-        """The rung's backend, fixed through the registry at rung entry."""
-        backend = self._backend_modes.get(key)
-        if backend is None:
-            backend = ops.select_backend(self.backend, device=self.device)
-            self._backend_modes[key] = backend
+    def _resolve_rung_backend(self, key: tuple[int, int], nbr_staged: np.ndarray,
+                              n_valid: int):
+        """Fix the rung's backend at rung entry through the registry.
+
+        When bsr is a candidate, the tile fill of this first snapshot (in
+        the order bsr stages) goes to the registry, and a bsr rung's
+        tile-slot budget is the layout's requirement scaled by how far the
+        rung can still fill (``key[0] / n_valid``: block rows densify as
+        rows arrive), padded up the ``bucket_k`` ladder and capped at BS
+        rows × K edges.  Returns (backend, layout or None)."""
+        bl = fill = None
+        if "bsr" in self._backend_candidates:
+            bl = ell_bsr_layout(nbr_staged, self._bsr_block)
+            fill = bl.fill
+        backend = ops.select_backend(self.backend, device=self.device, num_rows=key[0],
+                                     block_fill=fill)
+        self._backend_modes[key] = backend
+        if backend == "bsr":
+            grow = key[0] / max(1, n_valid)
+            cap = min(key[0] // self._bsr_block, key[1] * self._bsr_block)
+            self._slot_budgets[key] = min(
+                bucket_k(int(np.ceil(bl.num_slots * grow))), max(cap, 1))
+            logger.info("stream backend: rung %s -> bsr (block fill %.4f, slot budget %d)",
+                        key, fill, self._slot_budgets[key])
+        else:
             logger.info("stream backend: rung %s -> %s", key, backend)
-        return backend
+        return backend, bl
+
+    def _slot_overflow(self, key: tuple[int, int], needed: int) -> None:
+        """Record a bsr tile-budget overflow (warned once per rung)."""
+        if key not in self._slot_overflow_warned:
+            self._slot_overflow_warned.add(key)
+            logger.warning(
+                "stream bsr: rung %s needs %d tile slots but its budget is %d; "
+                "this batch runs on ell_cuda (warned once per rung)", key, needed,
+                self._slot_budgets[key])
+        self.backend_overflows += 1
+
+    def _stage_single(self, host: HostSnapshot) -> _Staging:
+        """Resolve a Δ_t's staging: the rung's backend; a bsr rung puts the
+        rows in component order and derives the slot map, or sends the
+        batch to ell_cuda when its slots exceed the rung's budget."""
+        key = host.bucket_key
+        backend = self._backend_modes.get(key)
+        order = bl = staged = inv = None
+        if backend is None:
+            if "bsr" in self._backend_candidates:
+                order = component_order(host.nbr)
+                staged, inv = reorder_host_snapshot(host, order)
+                backend, bl = self._resolve_rung_backend(key, staged.nbr,
+                                                         len(host.unl_ids))
+            else:
+                backend, bl = self._resolve_rung_backend(key, host.nbr,
+                                                         len(host.unl_ids))
+        if backend != "bsr":
+            return _Staging(staged=host, backend=backend)
+        if order is None:
+            order = component_order(host.nbr)
+            staged, inv = reorder_host_snapshot(host, order)
+        if bl is None:
+            bl = ell_bsr_layout(staged.nbr, self._bsr_block)
+        if bl.num_slots > self._slot_budgets[key]:
+            self._slot_overflow(key, bl.num_slots)
+            return _Staging(staged=host, backend="ell_cuda")
+        self.bsr_batches += 1
+        return _Staging(staged=staged, backend="bsr", rows=inv[: len(host.unl_ids)],
+                        perm=order, slot=bl.slot, num_slots=self._slot_budgets[key])
 
     def _commit(self, host: HostSnapshot) -> tuple[PropagationProblem, bool]:
         """Copy a host snapshot into the rung's next buffer generation;
@@ -204,14 +302,17 @@ class StreamEngine:
         self.bucket_keys.add(key)
         return slots[gen], first
 
-    def _solve(self, problem, f0, frontier, backend, ready) -> PropagateResult:
+    def _solve(self, problem, f0, frontier, st: _Staging, slot, ready) -> PropagateResult:
         """The worker thread's job: the solve, on the side stream behind
         ``ready``, finished before the job returns."""
         if self._side is not None:
             self._side.wait_event(ready)
+        tiled = {}
+        if st.backend == "bsr":
+            tiled = dict(slot=slot, num_slots=st.num_slots, block_size=self._bsr_block)
         res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
-                                  max_iters=self.max_iters, backend=backend,
-                                  device=self.device, stream=self._side)
+                                  max_iters=self.max_iters, backend=st.backend,
+                                  device=self.device, stream=self._side, **tiled)
         if self._side is not None:
             self._side.synchronize()
         return res
@@ -254,15 +355,21 @@ class StreamEngine:
 
         # ---- stage batch t while batch t-1 still propagates ----
         host = build_host_problem(g, max_degree=self.max_degree, auto_bucket=True,
-                                  max_k=self.max_k, warned=self._max_k_warned)
+                                  row_multiple=self._row_multiple, max_k=self.max_k,
+                                  warned=self._max_k_warned)
         u = len(host.unl_ids)
         u_pad = len(host.valid)
         frontier = np.zeros(u_pad, bool)
         aff_rows = host.remap[effect.affected]
         frontier[aff_rows[aff_rows >= 0]] = True
-        backend = self._rung_backend(host.bucket_key)
-        problem, recompiled = self._commit(host)
-        frontier_dev = torch.from_numpy(frontier).to(dev)
+        # a bsr batch stages its rows in component order; ``host`` stays in
+        # the original order for the supernode init and f0 below, which
+        # map through ``st.rows``/``st.perm``
+        st = self._stage_single(host)
+        problem, recompiled = self._commit(st.staged)
+        frontier_dev = torch.from_numpy(
+            frontier if st.perm is None else frontier[st.perm]).to(dev)
+        slot_dev = None if st.slot is None else torch.from_numpy(st.slot).to(dev)
 
         # ---- Step 2: supernode label initialization (as DynLP.step) ----
         n_components = 0
@@ -272,7 +379,8 @@ class StreamEngine:
             local_idx = torch.from_numpy(new_unl - effect.new_ids[0]).to(dev)
             comp = compact_labels(comp_local)[local_idx]
             n_components = int(comp.max()) + 1
-            rows = torch.from_numpy(host.remap[new_unl]).to(dev)
+            rows = host.remap[new_unl]
+            rows = torch.from_numpy(rows if st.rows is None else st.rows[rows]).to(dev)
             f_init = supernode_init(comp, problem.wl0[rows], problem.wl1[rows],
                                     num_segments=max(m, 1))
             g.f[new_unl] = f_init.cpu().numpy()
@@ -283,22 +391,23 @@ class StreamEngine:
         # ---- Step 3: queue this batch's solve ----
         f0 = np.full(u_pad, 0.5, np.float32)
         f0[:u] = g.f[host.unl_ids]
-        f0_dev = torch.from_numpy(f0).to(dev)
+        f0_dev = torch.from_numpy(f0 if st.perm is None else f0[st.perm]).to(dev)
         ready = None
-        if self._side is not None:
+        if self._side is not None:  # after every staged tensor, the slot map too
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(dev))
-        job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, backend, ready)
+        job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, st, slot_dev,
+                                  ready)
         self.recompile_count += recompiled
         self.batches += 1
         self._pending = _Pending(
             job=job, unl_ids=host.unl_ids, t0=t0, num_components=n_components,
             frontier_size=int(frontier.sum()), bucket=host.bucket_key,
-            recompiled=recompiled, transport="single", backend=backend,
+            recompiled=recompiled, transport="single", backend=st.backend, rows=st.rows,
             # labels/alive fixed by apply_batch; f holds batch t-1's
             # committed labels plus this batch's supernode inits
             view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy(),
-            keep=(problem, f0_dev, frontier_dev))
+            keep=(problem, f0_dev, frontier_dev, slot_dev))
         return prev
 
     # ------------------------------------------------------------------ #
@@ -316,7 +425,8 @@ class StreamEngine:
             iterations, converged, resid = 0, True, 0.0
         else:
             res = p.job.result()  # re-raises a failed solve here
-            solved = res.f.cpu().numpy()[: len(p.unl_ids)]
+            f = res.f.cpu().numpy()
+            solved = f[p.rows] if p.rows is not None else f[: len(p.unl_ids)]
             self.graph.f[p.unl_ids] = solved
             p.view_f[p.unl_ids] = solved
             iterations, converged, resid = res.iterations, res.converged, res.max_residual
@@ -348,6 +458,22 @@ class StreamEngine:
     def in_flight(self) -> bool:
         """True while a submitted batch has not been drained (committed)."""
         return self._pending is not None
+
+    def transport_summary(self) -> dict:
+        """JSON-friendly account of the per-rung backend decisions: the
+        requested backend, each rung's backend and bsr tile-slot budget, and
+        how many batches rode bsr or overflowed to ell_cuda.  (The
+        reference's mesh keys come with the mesh.)"""
+        def by_rung(d):
+            return {f"{u}x{k}": v for (u, k), v in sorted(d.items())}
+
+        return {
+            "requested_backend": self.backend or "auto",
+            "rung_backends": by_rung(self._backend_modes),
+            "slot_budgets": by_rung(self._slot_budgets),
+            "bsr_batches": self.bsr_batches,
+            "backend_overflows": self.backend_overflows,
+        }
 
     def committed_view(self) -> LabelView:
         """The query-side snapshot of the last COMMITTED batch: safe to read

@@ -2,10 +2,12 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` into ``build/repro_torch/
 libreprotorch.so`` (plain C entry points, no PyTorch headers, so a build
-takes seconds), and ``ctypes`` loads it.  The build happens at the first
-CUDA launch, never at import, so the CPU tests import every module without
-``nvcc``; it is redone when a hash of the sources and flags changes.  A
-failed build raises with the compiler's output.
+takes seconds), and ``ctypes`` loads it.  Each source compiles in its own
+``nvcc`` process, all started together, and one more links the objects.
+The build happens at the first CUDA launch, never at import, so the CPU
+tests import every module without ``nvcc``; it is redone when a hash of
+the sources and flags changes.  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprotorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (argtypes, restype); every pointer and the stream are
@@ -33,6 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F, _I, _P], _I),
     "argkmin": ([_P] * 11 + [_I] * 6 + [_F, _P], _I),
+    "bsr_spmv": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "cc_hook_step": ([_P] * 3 + [_I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -91,14 +95,32 @@ def build() -> tuple[pathlib.Path, bool, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sources():
+            obj = pathlib.Path(objdir) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        failed = None
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd, out)
+        if failed is None:
+            cmd = [nvcc, "-shared", "-o", tmp, *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = (proc.returncode, cmd, proc.stdout + proc.stderr)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed is not None:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        code, cmd, out = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, path)
     stamp.write_text(digest)
     return path, True, seconds, log

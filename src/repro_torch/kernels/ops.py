@@ -12,13 +12,19 @@ Registered backends:
   * ``"ell_cuda"`` — the frontier loop around the hand-written CUDA sweep
                      (``propagate_ell``; kernel in ``kernels.ell_propagate``).
                      The counterpart of the reference's ``ell_pallas``.
+  * ``"bsr"``      — the aggregation as a block-sparse SpMV over
+                     component-ordered rows (``propagate_bsr``; kernel in
+                     ``kernels.bsr_spmv``), tiles scattered on the device
+                     from the ELL tensor and a host slot map.  Taken only
+                     when asked for by name.
 
 ``backend=None``/``"auto"`` takes the highest-priority backend whose
 ``auto_eligible`` accepts the solve: ``ell_cuda`` on a CUDA device at every
 size (the reference's TPU row threshold was never measured on a GPU),
-``ref`` on the CPU.  So a ``ProblemInfo`` holds the device type alone; a
-backend whose eligibility depends on the problem adds the field it reads.
-The port reads no environment variable to change that.
+``ref`` on the CPU.  ``bsr`` is never auto-eligible here: the reference
+admits it on a TPU only, above a tile fill (``bsr_auto_fill_min``) that no
+measurement on the H100 has made a case for.  The port reads no
+environment variable to change that (``REPRO_BACKEND`` is not ported).
 """
 
 from __future__ import annotations
@@ -27,18 +33,28 @@ import contextlib
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.core.propagate import PropagateResult, PropagationProblem, _max_abs, propagate
+from repro_torch.core.components import component_order, permute_ell_rows
+from repro_torch.core.propagate import (PropagateResult, PropagationProblem, _delta,
+                                        _max_abs, bsr_update_island, propagate)
+from repro_torch.core.snapshot import bucket_k
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bsr_spmv import bsr_spmv, ell_bsr_layout, fill_bsr_blocks
 from repro_torch.kernels.ell_propagate import ell_propagate_step
 
 
 @dataclasses.dataclass(frozen=True)
 class ProblemInfo:
-    """What auto-selection may know about a solve."""
+    """What auto-selection may know about a solve.
+
+    ``block_fill`` is the post-component-reorder BSR fill; only the
+    streaming engine measures it (at rung entry)."""
 
     device_type: str  # "cuda" or "cpu"
+    num_rows: int | None = None
+    block_fill: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +65,9 @@ class BackendSpec:
     auto_priority: int  # auto scans high → low
     auto_eligible: Callable[[ProblemInfo], bool]
     run: Callable  # (problem, f0, frontier0, *, delta, max_iters) -> PropagateResult
+    # tile edge per device type, for a backend that tiles its aggregation
+    # (its ``run`` then also takes slot=, num_slots=, block_size=)
+    block_size: Callable[[str], int] | None = None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -73,21 +92,57 @@ def backend_spec(name: str) -> BackendSpec:
     return spec
 
 
+def bsr_block_size(device_type: str = "cuda") -> int:
+    """The ``bsr`` backend's tile edge on ``device_type``."""
+    return backend_spec("bsr").block_size(device_type)
+
+
+def bsr_auto_fill_min(device_type: str = "cuda") -> float:
+    """The touched-tile fill at which a tile product pays for its padding:
+    a tile costs its BS² entries whatever their fill, an ELL lane costs one
+    edge, so the break-even density scales as ~2/BS (the reference's
+    rule).  ``bsr`` is not auto-eligible on ``cpu`` or ``cuda`` at any
+    fill; the threshold is kept beside the tile edge it follows from."""
+    return 2.0 / bsr_block_size(device_type)
+
+
+def _by_priority() -> list[BackendSpec]:
+    return sorted(_REGISTRY.values(), key=lambda s: -s.auto_priority)
+
+
 def select_backend(backend: str | None = None,
                    problem: PropagationProblem | None = None,
                    *,
-                   device: str | torch.device | None = None) -> str:
+                   device: str | torch.device | None = None,
+                   num_rows: int | None = None,
+                   block_fill: float | None = None) -> str:
     """Resolve ``backend`` (None/"auto" → registry scan on ``device``'s
     type, which defaults to the problem's device, else ``cuda``)."""
     if backend not in (None, "auto"):
         return backend_spec(backend).name
     if device is None:
         device = problem.device if problem is not None else "cuda"
-    info = ProblemInfo(device_type=torch.device(device).type)
-    for spec in sorted(_REGISTRY.values(), key=lambda s: -s.auto_priority):
+    if num_rows is None and problem is not None:
+        num_rows = problem.num_unlabeled
+    info = ProblemInfo(device_type=torch.device(device).type, num_rows=num_rows,
+                       block_fill=block_fill)
+    for spec in _by_priority():
         if spec.auto_eligible(info):
             return spec.name
     raise RuntimeError("no auto-eligible backend registered")  # pragma: no cover
+
+
+def backend_candidates(backend: str | None = None, *,
+                       device: str | torch.device = "cuda") -> tuple[str, ...]:
+    """Every backend ``backend`` could resolve to on ``device``.
+
+    The streaming engine asks once, at construction, whether ``bsr`` is
+    among them; only then does it pad rows to the tile edge and measure
+    the tile fill at each rung's entry."""
+    if backend not in (None, "auto"):
+        return (backend_spec(backend).name,)
+    optimistic = ProblemInfo(device_type=torch.device(device).type, block_fill=1.0)
+    return tuple(s.name for s in _by_priority() if s.auto_eligible(optimistic))
 
 
 def propagate_ell(
@@ -123,6 +178,108 @@ def propagate_ell(
                            max_residual=float(resid))
 
 
+def _bsr_fixpoint(problem: PropagationProblem, slot: torch.Tensor, f0: torch.Tensor,
+                  frontier0: torch.Tensor, delta: float, max_iters: int,
+                  block_size: int, num_slots: int) -> PropagateResult:
+    """Frontier fixpoint with the aggregation as a BSR SpMV.  The tiles
+    are scattered from the staged ELL arrays once per solve, on the
+    device.  Per sweep: the SpMV, ``bsr_update_island`` on frontier rows,
+    then the residual, ``changed`` and the frontier expansion as plain
+    torch ops; one host sync per sweep, and ``iterations`` counts sweeps."""
+    p = problem
+    blocks, bcols = fill_bsr_blocks(p.nbr, p.wgt, slot, block_size=block_size,
+                                    num_slots=num_slots)
+    mask = p.nbr >= 0
+    idx = torch.where(mask, p.nbr, 0)
+    delta_ = _delta(delta, p.device)
+    wall = p.wall()
+    n = p.num_unlabeled
+    f = f0.to(torch.float32).contiguous()
+    frontier = frontier0 & p.valid
+    it = 0
+    resid = torch.zeros((), dtype=torch.float32, device=p.device)
+    while it < max_iters and bool(frontier.any()):
+        y = bsr_spmv(blocks, bcols, f)[:n]
+        f_all = bsr_update_island(y, p.wl1, wall, f)
+        f_new = torch.where(frontier & p.valid, f_all, f)
+        step = (f_new - f).abs()
+        changed = (step > delta_) & p.valid
+        nbr_changed = (changed[idx] & mask).any(dim=1)
+        frontier = (changed | nbr_changed) & p.valid
+        f, it, resid = f_new, it + 1, _max_abs(step)
+    return PropagateResult(f=f, iterations=it, converged=not bool(frontier.any()),
+                           max_residual=float(resid))
+
+
+def propagate_bsr(
+    problem: PropagationProblem,
+    f0: torch.Tensor,
+    frontier0: torch.Tensor,
+    delta: float = 1e-4,
+    max_iters: int = 100_000,
+    block_size: int | None = None,
+    slot: torch.Tensor | np.ndarray | None = None,
+    num_slots: int | None = None,
+) -> PropagateResult:
+    """Frontier propagation with the aggregation as a BSR SpMV.
+
+    Streaming callers (``core.stream.StreamEngine``) pass a problem already
+    in component order, its per-edge ``slot`` map and the rung's tile-slot
+    budget ``num_slots`` (``kernels.bsr_spmv.ell_bsr_layout``).  One-shot
+    callers pass neither: the rows are then component-ordered on the host
+    (paper Step 1), laid out in O(nnz), solved in that order and folded
+    back, with no dense (U, U) matrix at any size.
+    """
+    if block_size is None:
+        block_size = bsr_block_size(problem.device.type)
+    dev = problem.device
+    if slot is not None:
+        if num_slots is None:
+            raise ValueError("propagate_bsr with slot= needs num_slots= "
+                             "(the tile-slot budget)")
+        if problem.num_unlabeled % block_size:
+            raise ValueError(f"rows {problem.num_unlabeled} not a multiple of "
+                             f"block_size {block_size}")
+        if isinstance(slot, np.ndarray):
+            if slot.size and int(slot.max()) >= num_slots:
+                # a slot past the budget would belong to the next block
+                # row's tile: refuse (a device slot map's caller checked
+                # its budget, and fill_bsr_blocks drops such lanes)
+                raise ValueError(
+                    f"slot map needs {int(slot.max()) + 1} tile slots but "
+                    f"num_slots={num_slots}; pass the layout's num_slots "
+                    "(padded up is fine)")
+            slot = torch.from_numpy(slot)
+        return _bsr_fixpoint(problem, slot.to(dev), f0, frontier0, delta, max_iters,
+                             block_size, num_slots)
+
+    # one-shot: reorder + layout on the host, O(nnz)
+    n = problem.num_unlabeled
+    pad = (-n) % block_size
+    nbr_h = problem.nbr.cpu().numpy()
+    if pad:
+        nbr_h = np.concatenate([nbr_h, np.full((pad, nbr_h.shape[1]), -1, np.int32)])
+    order = component_order(nbr_h)
+    nbr_p, inv = permute_ell_rows(nbr_h, order)
+    layout = ell_bsr_layout(nbr_p, block_size)
+    order_dev = torch.from_numpy(order).to(dev)
+
+    def rpad(x, fill=0):
+        """Pad per-row tensors to the block multiple, then permute."""
+        if pad:
+            x = torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                         dtype=x.dtype, device=dev)])
+        return x[order_dev].contiguous()
+
+    pp = PropagationProblem(
+        nbr=torch.from_numpy(nbr_p).to(dev), wgt=rpad(problem.wgt),
+        wl0=rpad(problem.wl0), wl1=rpad(problem.wl1), valid=rpad(problem.valid, False))
+    res = _bsr_fixpoint(pp, torch.from_numpy(layout.slot).to(dev),
+                        rpad(f0.to(dev, torch.float32)), rpad(frontier0.to(dev), False),
+                        delta, max_iters, block_size, bucket_k(layout.num_slots))
+    return res._replace(f=res.f[torch.from_numpy(inv[:n]).to(dev)])
+
+
 register_backend(BackendSpec(
     name="ref",
     auto_priority=10,  # the always-eligible floor of the scan
@@ -137,6 +294,21 @@ register_backend(BackendSpec(
     run=propagate_ell,
 ))
 
+register_backend(BackendSpec(
+    name="bsr",
+    auto_priority=30,  # the reference's rank: above the ELL kernel where eligible
+    # the reference admits bsr on a TPU only; on the H100 no measurement
+    # says a tile product beats the ELL sweep, so it is taken by name only
+    auto_eligible=lambda info: False,
+    run=propagate_bsr,
+    # 8 on the card: the simple kernel uses no tensor cores, so a larger
+    # edge buys nothing yet, and on this repo's kNN streams it only
+    # multiplies the bytes (touched-tile fill 0.016 at 8 against 0.0043 at
+    # 16, PERF.md).  8 on the CPU as the reference off TPU, so the host
+    # state stays byte-identical to the JAX package's.
+    block_size=lambda device_type: 8,
+))
+
 
 def run_propagation(
     problem: PropagationProblem,
@@ -148,6 +320,9 @@ def run_propagation(
     backend: str | None = None,
     device: str | torch.device | None = None,
     stream: torch.cuda.Stream | None = None,
+    slot: torch.Tensor | np.ndarray | None = None,
+    num_slots: int | None = None,
+    block_size: int | None = None,
 ) -> PropagateResult:
     """Single propagation entry point: the solve runs on ``device``
     (``None`` → ``cuda``), with the inputs moved there, through the
@@ -156,12 +331,22 @@ def run_propagation(
     ``stream`` (CUDA only) is the stream the solve's work is queued on; the
     caller orders it after whatever produced the inputs (``StreamEngine``
     runs each solve on a side stream behind an event).  ``None`` queues on
-    the current stream."""
+    the current stream.  ``slot``/``num_slots``/``block_size`` go to a
+    tiled backend (``bsr``): the per-edge tile-slot map of a problem
+    already in component order and its slot budget, which
+    ``StreamEngine`` derives per Δ_t; without them ``bsr`` orders and lays
+    out the problem itself."""
     dev = resolve_device(device)
     if stream is not None and dev.type != "cuda":
         raise ValueError(f"stream= needs a CUDA device, got {dev}")
     with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         problem = problem.to(dev)
-        name = select_backend(backend, problem)
-        return backend_spec(name).run(problem, f0.to(dev), frontier0.to(dev),
-                                      delta=delta, max_iters=max_iters)
+        spec = backend_spec(select_backend(backend, problem))
+        tiled = {}
+        if spec.block_size is not None:
+            tiled = dict(slot=slot, num_slots=num_slots, block_size=block_size)
+        elif any(v is not None for v in (slot, num_slots, block_size)):
+            raise ValueError(f"backend {spec.name!r} takes no slot map "
+                             "(slot=/num_slots=/block_size= are for bsr)")
+        return spec.run(problem, f0.to(dev), frontier0.to(dev),
+                        delta=delta, max_iters=max_iters, **tiled)

@@ -16,6 +16,7 @@ from repro_torch.core.propagate import PropagationProblem
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import DynamicGraph
 from repro_torch.ingest.embedding_store import EmbeddingStore
+from repro_torch.kernels.bsr_spmv import BsrLayout
 
 
 def graph_from_reference(arrays: dict[str, np.ndarray], emb_dim: int,
@@ -51,3 +52,11 @@ def store_from_reference(arrays: dict[str, np.ndarray], count: int, emb_dim: int
     store.load_state_arrays({k: np.asarray(arrays[k]) for k in ("emb", "valid", "kth")},
                             count)
     return store
+
+
+def bsr_layout_from_reference(slot, num_slots: int, n_blocks: int, nnz: int,
+                              block_size: int) -> BsrLayout:
+    """A port ``BsrLayout`` from a reference ``BsrLayout``'s fields
+    (``slot`` as a numpy array, the rest as ints)."""
+    return BsrLayout(slot=np.array(slot, np.int32), num_slots=int(num_slots),
+                     n_blocks=int(n_blocks), nnz=int(nnz), block_size=int(block_size))

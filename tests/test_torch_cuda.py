@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernels (frontier sweep, argkmin) against
-their plain versions, and the main paths through them.  Every test here needs an NVIDIA GPU and
+"""The port on the card: the CUDA kernels (frontier sweep, argkmin, BSR
+SpMV, Shiloach–Vishkin hook) against their plain versions, and the main
+paths through them.  Every test here needs an NVIDIA GPU and
 skips without one; this file imports neither jax nor the reference, so it
 runs on a machine that has only PyTorch:
 
@@ -16,6 +17,8 @@ from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
 from repro_torch.graph.dynamic import DynamicGraph
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref
+from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
+from repro_torch.kernels.cc_hook import cc_hook_ref, cc_hook_step, connected_components_cuda
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
 
 pytestmark = pytest.mark.cuda
@@ -120,5 +123,76 @@ def test_device_ingest_stream_goes_through_argkmin(card):
     assert argkmin_candidates.launches - before == inserts > 0
     for name in ("src", "dst", "wgt", "knn_idx", "knn_wgt"):
         assert getattr(gg, name).tobytes() == getattr(gc, name).tobytes(), name
+    ids = np.flatnonzero(gg.alive & (gg.labels == -1))
+    assert np.abs(gg.f[ids] - gc.f[ids]).max() <= 20 * DELTA
+
+
+def _bsr_inputs(rng, r, j, bs, c, empty=0.3, bare_rows=0.0, dtype=torch.float32):
+    """Random row-padded BSR tiles: a share ``empty`` of the slots is
+    empty (-1, zero tile), and ``bare_rows`` of the block rows have none."""
+    cols = rng.integers(0, c, size=(r, j)).astype(np.int32)
+    cols[rng.random((r, j)) < empty] = -1
+    cols[rng.random(r) < bare_rows] = -1
+    blocks = rng.normal(0, 1, (r, j, bs, bs)).astype(np.float32)
+    blocks[cols < 0] = 0.0
+    x = rng.normal(0, 1, c * bs).astype(np.float32)
+    return (torch.from_numpy(blocks).to(dtype), torch.from_numpy(cols),
+            torch.from_numpy(x).to(dtype))
+
+
+@pytest.mark.parametrize("r,j,bs,c,empty,bare,dtype", [
+    (13_400, 128, 8, 13_400, 0.45, 0.0, torch.float32),  # the main path's width
+    (64, 4, 8, 64, 1.0, 0.0, torch.float32),  # every slot empty
+    (300, 6, 8, 300, 0.2, 0.5, torch.float32),  # block rows without slots
+    (500, 1, 16, 500, 0.1, 0.0, torch.float32),  # J = 1
+    (40, 5, 32, 97, 0.3, 0.0, torch.float32),  # C != R
+    (6, 3, 128, 9, 0.2, 0.0, torch.float32),  # BS = 128
+    (80, 7, 8, 80, 0.3, 0.1, torch.bfloat16),  # bfloat16 tiles and x
+])
+def test_bsr_spmv_kernel_gives_the_plain_versions_bits(card, r, j, bs, c, empty, bare, dtype):
+    args = [a.to(card) for a in _bsr_inputs(np.random.default_rng(r + j + bs), r, j, bs, c,
+                                            empty, bare, dtype)]
+    before = bsr_spmv.launches
+    got = bsr_spmv(*args)
+    want = bsr_spmv_ref(*args)
+    torch.cuda.synchronize()
+    assert bsr_spmv.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (r * bs,)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,k,pad", [(107_200, 24, 0.4), (1000, 1, 0.5), (777, 5, 1.0)])
+def test_cc_hook_kernel_gives_the_plain_versions_result(card, n, k, pad):
+    rng = np.random.default_rng(n + k)
+    nbr = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    nbr[rng.random((n, k)) < pad] = -1
+    nbr = torch.from_numpy(nbr).to(card)
+    par = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(card)
+    before = cc_hook_step.launches
+    got = cc_hook_step(nbr, par)
+    torch.cuda.synchronize()
+    assert cc_hook_step.launches == before + 1
+    assert torch.equal(got, cc_hook_ref(nbr, par))
+    labels, iters = connected_components_cuda(nbr)
+    cpu_labels, cpu_iters = connected_components_cuda(nbr.cpu())
+    assert torch.equal(labels.cpu(), cpu_labels) and iters == cpu_iters
+
+
+def test_bsr_stream_goes_through_the_spmv_kernel(card):
+    """``StreamEngine(backend="bsr")`` on the card launches the SpMV once
+    per sweep, and its labels are within 20·δ of a CPU ``ref`` engine's."""
+    spec = StreamSpec(total_vertices=900, batch_size=300, seed=3, class_sep=6.0, noise=0.8)
+    gg, gc = DynamicGraph(16, 5), DynamicGraph(16, 5)
+    eng = StreamEngine(gg, delta=DELTA, backend="bsr")
+    ref = StreamEngine(gc, delta=DELTA, backend="ref", device="cpu")
+    before = bsr_spmv.launches
+    sweeps = 0
+    for batch, _ in gaussian_mixture_stream(spec):
+        st = eng.step(batch)
+        assert st.backend == "bsr"
+        sweeps += st.iterations
+        ref.step(batch)
+    assert bsr_spmv.launches - before == sweeps > 0
+    assert eng.backend_overflows == 0
     ids = np.flatnonzero(gg.alive & (gg.labels == -1))
     assert np.abs(gg.f[ids] - gc.f[ids]).max() <= 20 * DELTA

@@ -402,11 +402,11 @@ def test_constructor_validation_and_deferred_surface():
     with pytest.raises(ValueError, match="ingest_order"):
         _engine(g, ingest_order="random")
     with pytest.raises(ValueError, match="unknown backend"):
-        _engine(g, backend="bsr")
+        _engine(g, backend="landmark")
     with pytest.raises(TypeError):
         _engine(g, mesh=object())
     eng = _engine(g)
-    for name in ("device_view", "checkpoint", "restore", "transport_summary"):
+    for name in ("device_view", "checkpoint", "restore"):
         assert not hasattr(eng, name), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
