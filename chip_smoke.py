@@ -8,12 +8,20 @@ Phases (each prints its lines and its seconds; any failed check raises):
 
 1. Card and build: the card's name and power limit, and the build of the
    CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together) with nvcc's register report.
+   started together) with each kernel's registers, stack frame and spills
+   from ptxas; the argkmin tile kernel at TK <= 16 must keep its lists in
+   registers (no stack frame, no spill) at D = 16 and D = 128.
 2. Kernels against their plain PyTorch versions on the card: the frontier
    sweep ``ell_propagate_step``, the argkmin kernel, the BSR SpMV
    ``bsr_spmv`` and the Shiloach–Vishkin step ``cc_hook_step``, on edge
-   cases and at the main paths' widths, must give the same bits;
-   components and the supernode init agree with the CPU; small streams
+   cases and at the main paths' widths, must give the same bits.  The
+   sweep's cases include K = 1, 24, 32, 33, 64 with the frontier all on,
+   all off, one row a warp or random, all-PAD rows, the row_offset clamp
+   and every column chunk; argkmin's every list bound (TK = 1, 8, 9, 13,
+   16, 17, 32) with the top-TK in the seed, in the last split or tied at
+   the threshold, with and without a seed pass, C below one split and M
+   off the block rows.  Components and the supernode init agree with the
+   CPU; small streams
    through ``DynLP`` (default backend, and ``backend="bsr"``) on the card
    agree with the CPU within 20·δ.
 3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
@@ -48,10 +56,13 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``bsr`` against ``ell_cuda`` on the unpermuted problem; ``bsr`` against
    ``ref`` on the staged problem (the same iterates within 1e-5 over a
    fixed number of sweeps with every row on, the same predictions where
-   |F − 0.5| > 20·δ, the δ-stopped gap printed); the sweep kernel on every sweep of the
-   ``ell_cuda`` solve; argkmin at the last batch's inputs against its
-   plain version and a three-call library yardstick; ``cc_hook_step`` on
-   every step of phase 6.  Each beside its bound.
+   |F − 0.5| > 20·δ, the δ-stopped gap printed); the sweep kernel on
+   every sweep of the ``ell_cuda`` solve, beside an empty kernel launch
+   timed the same way and narrower column chunks; argkmin at the last
+   batch's inputs against its plain version and a three-call library
+   yardstick, beside the no-FMA floor and with a seed pass, and (checked
+   bitwise first) at D = 128; ``cc_hook_step`` on every step of phase 6.
+   Each beside its bound.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -63,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -87,13 +99,16 @@ from repro_torch.graph.dynamic import UNLABELED, DynamicGraph  # noqa: E402
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
 from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E402
 from repro_torch.ingest import incremental_knn  # noqa: E402
-from repro_torch.kernels._build import load_library  # noqa: E402
+from repro_torch.kernels._build import load_library, ptxas_report  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
-from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref  # noqa: E402
+from repro_torch.kernels.argkmin import (SEED_SHARE, argkmin_candidates,  # noqa: E402
+                                         argkmin_geometry, argkmin_launch, argkmin_ref,
+                                         resident_blocks)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref  # noqa: E402
 from repro_torch.kernels.cc_hook import (cc_hook_ref, cc_hook_step,  # noqa: E402
                                          connected_components_cuda)
-from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
+from repro_torch.kernels.ell_propagate import (ell_propagate_ref, ell_propagate_step,  # noqa: E402
+                                               sweep_geometry, sweep_launch)
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
 
@@ -101,6 +116,8 @@ DELTA = 1e-4
 TOL = 20 * DELTA  # port vs port across backends/devices (the reference's own bound)
 BSR_ATOL = 2e-3  # a bsr stream against an ELL one (the reference's test bound)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# sweep column chunks timed beside the default (32)
+SWEEP_CHUNKS = (16, 8)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
@@ -109,6 +126,34 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """``argkmin_tile_kernel<16,16>`` from a mangled kernel name."""
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E|I\w+?E)?", mangled)
+    if m is None:
+        return mangled[:60]
+    args = re.findall(r"Li(\d+)E", m.group(2) or "") or (
+        [re.sub(r"^I\d*|E$", "", m.group(2))] if m.group(2) else [])
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def report_ptxas(log):
+    """Registers, stack frame and spills of every kernel (nvcc -Xptxas -v);
+    the argkmin tile kernel at the main path's list bound (TKB 16) for
+    D = 16 and D = 128 must keep its lists in registers: no stack frame,
+    no spills."""
+    rep = ptxas_report(log)
+    for e in sorted(rep.values(), key=lambda e: kernel_label(e.function)):
+        print(f"   ptxas {kernel_label(e.function):<34} {e.registers:3d} registers  "
+              f"{e.stack_bytes:3d} B stack  {e.spill_stores:3d}/{e.spill_loads:<3d} B spilled")
+    for d in (16, 128):
+        hits = [e for e in rep.values() if f"argkmin_tile_kernelILi{d}ELi16E" in e.function]
+        require(len(hits) == 1, f"no ptxas report for argkmin_tile_kernel<{d},16>")
+        e = hits[0]
+        require(e.stack_bytes == 0 and e.spill_stores == 0 and e.spill_loads == 0,
+                f"argkmin_tile_kernel<{d},16>: {e.stack_bytes} B stack, "
+                f"{e.spill_stores}/{e.spill_loads} B spilled")
 
 
 class Phase:
@@ -195,8 +240,10 @@ def sweep_bound(n, k, nf, rows):
 
 
 # --------------------------------------------------------------------- #
-def sweep_inputs(rng, n, k, nf=None, pad_rows=0.0, dead_rows=0.0, frontier_p=0.6):
-    """Random frontier-sweep inputs on the card (made with numpy)."""
+def sweep_inputs(rng, n, k, nf=None, pad_rows=0.0, dead_rows=0.0, frontier_p=0.6,
+                 one_per_warp=False):
+    """Random frontier-sweep inputs on the card (made with numpy): a share
+    ``frontier_p`` of the rows on the frontier, or one row in each 32."""
     nf = n if nf is None else nf
     nbr = rng.integers(-1, nf, size=(n, k)).astype(np.int32)
     pad = rng.random(n) < pad_rows
@@ -207,13 +254,16 @@ def sweep_inputs(rng, n, k, nf=None, pad_rows=0.0, dead_rows=0.0, frontier_p=0.6
     dead = pad & (rng.random(n) < dead_rows)  # all-PAD rows with Wall == 0
     wl0[dead] = 0.0
     wl1[dead] = 0.0
-    frontier = rng.random(n) < frontier_p
+    frontier = (np.arange(n) % 32 == 7) if one_per_warp else rng.random(n) < frontier_p
     f = rng.uniform(0, 1, nf).astype(np.float32)
     return [torch.from_numpy(a).cuda() for a in (nbr, wgt, wl0, wl1, frontier, f)]
 
 
-def check_sweep(name, args, delta=1e-3, row_offset=0):
-    got_f, got_ch = ell_propagate_step(*args, delta=delta, row_offset=row_offset)
+def check_sweep(name, args, delta=1e-3, row_offset=0, geo=None):
+    if geo is None:
+        got_f, got_ch = ell_propagate_step(*args, delta=delta, row_offset=row_offset)
+    else:
+        got_f, got_ch = sweep_launch(*args, delta, row_offset, geo)
     want_f, want_ch = ell_propagate_ref(*args, delta=delta, row_offset=row_offset)
     torch.cuda.synchronize()
     err = float((got_f - want_f).abs().max()) if got_f.numel() else 0.0
@@ -252,12 +302,19 @@ def argkmin_inputs(rng, c, d, m, count, k=5, dead=0.1, dup=False, real=None, kth
     return dict(args=args, base=base, slack=selection_slack(d), k=k)
 
 
-def check_argkmin(name, inp):
-    """The kernel against its plain version: values, ids and mask bitwise."""
+def check_argkmin(name, inp, topk=None, seed_share=None):
+    """The kernel against its plain version: values, ids and mask bitwise.
+    With ``topk`` (or ``seed_share``) the kernel is launched for that list
+    width (seed) directly, else through ``argkmin_candidates``."""
     args, base, slack, k = inp["args"], inp["base"], inp["slack"], inp["k"]
     c, d = args[0].shape
-    topk = min(k + SELECT_MARGIN, c)
-    got = argkmin_candidates(*args, base, slack, k=k)
+    if topk is None and seed_share is None:
+        topk = min(k + SELECT_MARGIN, c)
+        got = argkmin_candidates(*args, base, slack, k=k)
+    else:
+        topk = min(k + SELECT_MARGIN, c) if topk is None else topk
+        got = argkmin_launch(*args, base, slack, topk=topk,
+                             seed_share=SEED_SHARE if seed_share is None else seed_share)
     want = argkmin_ref(*args, base, slack, topk=topk)
     torch.cuda.synchronize()
     fin = torch.isfinite(want[0])
@@ -265,10 +322,29 @@ def check_argkmin(name, inp):
     same = [torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                         w.view(torch.int32) if w.dtype == torch.float32 else w)
             for g, w in zip(got, want)]
-    print(f"   argkmin {name:<26} C={c:<6} D={d:<3} M={args[3].shape[0]:<5} TK={topk:<2} "
+    print(f"   argkmin {name:<30} C={c:<6} D={d:<3} M={args[3].shape[0]:<5} TK={topk:<2} "
           f"bitwise val/idx/disp={same} finite={int(fin.sum())} disp={int(got[2].sum())}")
     require(all(same) and err == 0.0, f"argkmin {name}: kernel != plain version")
     return err
+
+
+def argkmin_placed(rng, case, c=3000, d=16, m=200):
+    """argkmin inputs that put the top-TK where the thresholded splits find
+    it hardest: all in the seed (the lowest rows), all in the last split
+    (just below the batch), or mass ties at the seed's TK-th value across
+    every split boundary.  M = 200 is not a multiple of the block rows."""
+    inp = argkmin_inputs(rng, c, d, m, c)
+    emb, batch = inp["args"][0], inp["args"][3]
+    base = inp["base"]
+    if case == "top-TK in the seed":
+        emb[:64] = batch[torch.arange(64, device=batch.device) % m]
+    elif case == "top-TK in the last split":
+        emb[base - 64:base] = batch[torch.arange(64, device=batch.device) % m]
+    elif case == "mass ties at the threshold":
+        emb[:base:3] = emb[1]
+        batch[:] = emb[1]
+        emb[base:] = batch
+    return inp
 
 
 def argkmin_bound(inp):
@@ -377,6 +453,23 @@ def phase_kernels():
         check_sweep("row_offset clamps",
                     sweep_inputs(rng, 700, 8, nf=1500), row_offset=1000),
     ]
+    # the warp-cooperative walk: one column chunk or several, a frontier
+    # all on, all off, one row per warp or random, all-PAD rows, the
+    # clamp, and every warp mode and chunk width of the launch geometry
+    for k in (1, 24, 32, 33, 64):
+        for name, kw in (("all on", dict(frontier_p=1.0)), ("all off", dict(frontier_p=0.0)),
+                         ("one row a warp", dict(one_per_warp=True)),
+                         ("random, all-PAD rows", dict(pad_rows=0.2, dead_rows=0.5))):
+            errs.append(check_sweep(f"K={k} {name}", sweep_inputs(rng, 3000 + k, k, **kw),
+                                    delta=DELTA))
+    errs.append(check_sweep("K=33 row_offset clamps", sweep_inputs(rng, 1000, 33, nf=1300),
+                            row_offset=700))
+    for chunk in (16, 8, 5, 1):
+        for name, kw in (("all on", dict(frontier_p=1.0)), ("one row a warp", dict(
+                one_per_warp=True)), ("random", {})):
+            args = sweep_inputs(rng, 2000, 24, pad_rows=0.1, **kw)
+            errs.append(check_sweep(f"chunk={chunk} {name}", args, delta=DELTA,
+                                    geo=sweep_geometry(2000, 24, chunk=chunk)))
 
     c, d, m = 131072, 16, 8192  # the second main path's last argkmin call
     cases = [
@@ -391,6 +484,20 @@ def phase_kernels():
         ("TK=32, D=128", argkmin_inputs(rng, 5000, 128, 300, 4900, k=24)),
     ]
     argkmin_errs = [check_argkmin(name, inp) for name, inp in cases]
+    # every list bound (TK on both sides of 8, 16, 32) where the top-TK lies
+    # in the seed, in the last split, or ties at the threshold, with and
+    # without a seed pass; C below one split, M one past a block
+    for case in ("random", "top-TK in the seed", "top-TK in the last split",
+                 "mass ties at the threshold"):
+        inp = argkmin_placed(np.random.default_rng(11), case)
+        for topk in (1, 8, 9, 13, 16, 17, 32):
+            for share in (0.0, 0.25):
+                argkmin_errs.append(check_argkmin(f"{case}, seed {share}", inp, topk=topk,
+                                                  seed_share=share))
+    for c_, d_, m_ in ((300, 16, 8), (257, 128, 3), (1, 8, 1), (2000, 40, 129)):
+        argkmin_errs.append(check_argkmin("C < one split, M % 128 != 0",
+                                          argkmin_inputs(rng, c_, d_, m_, c_),
+                                          topk=min(13, c_), seed_share=0.25))
     inp = cases[2][1]  # every old valid row has an empty slot: all displaced
     old = inp["args"][1] & (torch.arange(1024, device="cuda") < inp["base"])
     require(torch.equal(argkmin_candidates(*inp["args"], inp["base"], inp["slack"],
@@ -773,6 +880,20 @@ def phase_timing(last):
           f"plain {sum(p_ms):.3f} ms  bound {sum(b_ms):.4f} ms  "
           f"kernel/bound {sum(k_ms) / sum(b_ms):.2f}x  "
           f"library: no single PyTorch call")
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = gpu_times([lambda: lib.check(lib.lib.empty_launch(stream), "empty launch")] * 200,
+                      per_sleep=100)
+    print(f"   per sweep, mean of {len(sweeps)}: kernel {np.mean(k_ms) * 1e3:.2f} us  bound "
+          f"{np.mean(b_ms) * 1e3:.2f} us  an empty kernel launch timed the same way: "
+          f"{statistics.median(empty) * 1e3:.2f} us (median of 200)")
+    # narrower column chunks on the same sweeps (less shared memory a block)
+    for chunk in SWEEP_CHUNKS:
+        geo = sweep_geometry(n, k, chunk=chunk)
+        v_ms = gpu_times([lambda a=a: sweep_launch(*a, DELTA, 0, geo) for a in sweeps],
+                         per_sleep=100)
+        print(f"   variant chunk={chunk:2d}: mean {np.mean(v_ms) * 1e3:.2f} us over the "
+              f"{len(sweeps)} sweeps")
     by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
     # the record is per launch, averaged over the batch's sweeps
     m = len(sweeps)
@@ -813,14 +934,29 @@ def phase_argkmin_timing(inp):
           f"{l_ms:.3f} ms  bound {b_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
           f"{by}; {nbytes / 1e6:.1f} MB)  kernel/bound {k_ms / b_ms:.2f}x  "
           f"(all C rows: {full_ms:.4f} ms)")
+    # the no-FMA floor: a multiply and an add are two instructions, so the
+    # arithmetic alone takes at least twice the bound's operation time
+    print(f"   no-FMA floor {2 * flops / F32_FLOPS * 1e3:.4f} ms (2 instructions a term at "
+          f"{F32_FLOPS / 2 / 1e12:.1f} T instr/s); kernel/floor "
+          f"{k_ms / (2 * flops / F32_FLOPS * 1e3):.2f}x")
+    geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(
+        d, argkmin_geometry(c, d, m, topk)["tkb"], 0))
+    print(f"   geometry: {json.dumps(geo)}")
+    for share in (0.0625, 0.25):  # a seed pass and its threshold
+        s_ms = statistics.median(gpu_times(
+            [lambda: argkmin_launch(*args, base, slack, topk=topk, seed_share=share)] * 10,
+            per_sleep=10))
+        print(f"   variant seed share {share}: {s_ms:.3f} ms")
     wide = argkmin_inputs(np.random.default_rng(7), c, 128, m, base + m,
                           real=int(args[4].sum()))
+    check_argkmin("main-path shape, D=128", wide)
     w_ms = statistics.median(gpu_times(
         [lambda: argkmin_candidates(*wide["args"], wide["base"], wide["slack"], k=5)] * 10,
         per_sleep=10))
     wb = argkmin_bound(wide)
     print(f"   argkmin at D=128, same C and M: kernel {w_ms:.3f} ms  bound {wb[0]:.4f} ms "
-          f"({wb[2] / 1e9:.1f} GFLOP, {wb[1]})  kernel/bound {w_ms / wb[0]:.2f}x")
+          f"({wb[2] / 1e9:.1f} GFLOP, {wb[1]})  kernel/bound {w_ms / wb[0]:.2f}x  no-FMA "
+          f"floor {2 * wb[2] / F32_FLOPS * 1e3:.4f} ms")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
                 max_abs_err=err)
 
@@ -1057,9 +1193,7 @@ def main(argv=None) -> int:
         lib = load_library()
         print(f"   built {lib.path.relative_to(REPO)} in {lib.seconds:.1f} s "
               f"(fresh build: {lib.built})")
-        for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"   nvcc: {line.strip()}")
+        report_ptxas(lib.log)
     with Phase("kernels vs plain versions on the card"):
         sweep_err, argkmin_err, bsr_err, cc_err = phase_kernels()
     with Phase("path 1: DynLP.step over the stream"):

@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,8 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (argtypes, restype); every pointer and the stream are
 # c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F, _I, _P], _I),
-    "argkmin": ([_P] * 11 + [_I] * 6 + [_F, _P], _I),
+    "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P], _I),
+    "empty_launch": ([_P], _I),
+    "argkmin": ([_P] * 11 + [_I] * 8 + [_F, _P], _I),
+    "argkmin_resident_blocks": ([_I, _I], _I),
     "bsr_spmv": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "cc_hook_step": ([_P] * 3 + [_I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -60,9 +63,13 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -82,15 +89,17 @@ def find_nvcc() -> str:
 def build() -> tuple[pathlib.Path, bool, float, str]:
     """Compile the sources unless the library on disk matches their hash.
 
-    Returns (path, built, seconds, log).  The library is written to a
+    Returns (path, built, seconds, log); an up-to-date library comes back
+    with the log of the build that made it.  The library is written to a
     temporary name and renamed into place, so a concurrent reader never
     sees a half-written file.
     """
     digest = source_hash()
     path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    log_path = BUILD_DIR / (LIB_NAME + ".log")
     if path.exists() and stamp.exists() and stamp.read_text() == digest:
-        return path, False, 0.0, ""
+        return path, False, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -122,8 +131,42 @@ def build() -> tuple[pathlib.Path, bool, float, str]:
         code, cmd, out = failed
         raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, path)
+    log_path.write_text(log)
     stamp.write_text(digest)
     return path, True, seconds, log
+
+
+@dataclasses.dataclass(frozen=True)
+class PtxasEntry:
+    function: str  # the mangled kernel name
+    registers: int
+    stack_bytes: int
+    spill_stores: int
+    spill_loads: int
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict[str, PtxasEntry]:
+    """Registers, stack frame and spills of every kernel in an ``nvcc
+    -Xptxas -v`` log, by mangled name (functions that are not kernels,
+    which have no register line, are left out)."""
+    regs, frames, cur = {}, {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            cur = m.group(1)
+        elif m := _PROPS.search(line):
+            cur = m.group(1)
+        elif (m := _FRAME.search(line)) and cur:
+            frames[cur] = tuple(int(x) for x in m.groups())
+        elif (m := _REGS.search(line)) and cur:
+            regs[cur] = int(m.group(1))
+    return {name: PtxasEntry(name, n, *frames.get(name, (0, 0, 0)))
+            for name, n in regs.items()}
 
 
 @functools.cache

@@ -28,15 +28,20 @@ launches the kernel for CUDA tensors.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.graph.knn import SELECT_MARGIN
 
-TK_MAX = 32  # the kernel's compile-time bound on the list width
+LIST_BOUNDS = (8, 16, 32)  # the kernel's list lengths, each built for every D
+TK_MAX = LIST_BOUNDS[-1]
 D_MAX = 128  # the kernel is built for D = 8, 16, ..., 128
-ROWS_PER_BLOCK = 128  # batch rows per block of the kernel's first pass
-SPLIT_TARGET = 1056  # blocks to aim for in the first pass (8 per SM)
+ROWS_PER_BLOCK = 128  # batch rows per block of the tile passes, one a thread
+SPLIT_TARGET = 1056  # resident blocks assumed where the card is not asked (8 per SM)
+SEED_SHARE = 0.0  # seed rows as a share of a split; 0: no seed pass (timed best)
+TILE_FLOATS = 4096  # floats of the store tile a block stages in shared memory
 _PLAIN_TILE_ELEMS = 2**26  # (M, tile) elements per plain-version temporary
 
 
@@ -98,6 +103,48 @@ def argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, *,
     return val, idx, disp
 
 
+def argkmin_geometry(c: int, d: int, m: int, topk: int, *, resident: int = SPLIT_TARGET,
+                     seed_share: float = SEED_SHARE) -> dict:
+    """The kernel's launch geometry for a (C, D, M, TK) call.
+
+    ``tkb``: the list bound, the smallest of ``LIST_BOUNDS`` that holds
+    ``topk``.  ``row_blocks``: blocks of ``ROWS_PER_BLOCK`` batch rows.
+    ``tile_rows``: store rows a block stages at a time.  ``splits``: the
+    pass over the rows after the seed deals its tiles round-robin to this
+    many splits, as many as fill one wave of ``resident`` blocks (the
+    blocks the card holds at once) and no more than there are tiles.
+    ``seed_rows``: the seed pass's rows, ``seed_share`` of a split's rows
+    (at least one), or none (no seed pass, no threshold) when
+    ``seed_share`` is 0.  ``smem_bytes``: the tile kernel's static shared
+    memory."""
+    if not 1 <= topk <= TK_MAX:
+        raise ValueError(f"the argkmin kernel keeps 1 to {TK_MAX} candidates; got {topk}")
+    if c < 1 or m < 1 or d % 8 or not 8 <= d <= D_MAX:
+        raise ValueError(f"no argkmin launch for C={c}, D={d}, M={m}")
+    tkb = min(b for b in LIST_BOUNDS if b >= topk)
+    row_blocks = -(-m // ROWS_PER_BLOCK)
+    tile_rows = (TILE_FLOATS // d) // 8 * 8
+    want = max(1, min(resident // row_blocks, -(-c // tile_rows), 65535))
+    seed_rows = min(c, max(1, int(-(-c // want) * seed_share))) if seed_share > 0 else 0
+    rest = c - seed_rows
+    splits = max(1, min(want, -(-rest // tile_rows))) if rest else 0
+    return dict(tkb=tkb, row_blocks=row_blocks, tile_rows=tile_rows, seed_rows=seed_rows,
+                splits=splits, blocks=row_blocks * splits,
+                smem_bytes=tile_rows * d * 4 + tile_rows + 4 * 4 * tile_rows)
+
+
+@functools.cache
+def resident_blocks(d: int, tkb: int, device_index: int) -> int:
+    """Blocks of the tile kernel for (D, TKB) that the card holds at once."""
+    from repro_torch.kernels._build import load_library
+
+    with torch.cuda.device(device_index):
+        n = load_library().lib.argkmin_resident_blocks(d, tkb)
+    if n < 1:
+        raise RuntimeError(f"argkmin: no occupancy for D={d}, TKB={tkb} ({n})")
+    return n
+
+
 def _check(store, valid, kth, batch, batch_valid, base_id):
     dev = store.device
     if dev.type not in ("cpu", "cuda"):
@@ -145,32 +192,49 @@ def argkmin_candidates(store, valid, kth, batch, batch_valid, base_id, slack, *,
     topk = min(k + SELECT_MARGIN, c)
     if store.device.type == "cpu":
         return argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, topk=topk)
-    if d % 8 or not 8 <= d <= D_MAX:
-        raise ValueError(f"the argkmin kernel takes D = 8, 16, ..., {D_MAX}; got {d}")
-    if not 1 <= topk <= TK_MAX:
-        raise ValueError(f"the argkmin kernel keeps at most {TK_MAX} candidates; "
-                         f"k + SELECT_MARGIN = {k + SELECT_MARGIN}")
-    if store.data_ptr() % 16:
-        raise ValueError("store must be 16-byte aligned")
+    return argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, topk=topk)
+
+
+def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, topk: int,
+                   seed_share: float = SEED_SHARE):
+    """The kernel on CUDA tensors for any ``1 <= topk <= TK_MAX``:
+    ``(val, idx, disp)`` as ``argkmin_ref`` gives them.  ``seed_share``
+    sets the seed pass's rows (``argkmin_geometry``); the result does not
+    depend on it.  Bumps ``argkmin_candidates.launches`` once a call."""
     from repro_torch.kernels._build import load_library
 
+    _check(store, valid, kth, batch, batch_valid, base_id)
+    if store.device.type != "cuda":
+        raise ValueError(f"argkmin_launch runs the CUDA kernel; store is on {store.device}")
+    c, d = store.shape
+    m = batch.shape[0]
+    if d % 8 or not 8 <= d <= D_MAX:
+        raise ValueError(f"the argkmin kernel takes D = 8, 16, ..., {D_MAX}; got {d}")
+    if not 1 <= topk <= min(TK_MAX, c):
+        raise ValueError(f"the argkmin kernel keeps 1 to {TK_MAX} candidates, at most C; "
+                         f"got TK = {topk}")
+    if store.data_ptr() % 16:
+        raise ValueError("store must be 16-byte aligned")
     dev = store.device
     val = torch.empty((m, topk), dtype=torch.float32, device=dev)
     idx = torch.empty((m, topk), dtype=torch.int32, device=dev)
     disp = torch.empty(c, dtype=torch.uint8, device=dev)
     if m == 0:
         return val, idx, disp.zero_().view(torch.bool)
-    row_blocks = -(-m // ROWS_PER_BLOCK)
-    splits = max(1, min(-(-SPLIT_TARGET // row_blocks), -(-c // 256), 65535))
-    pval = torch.empty((splits, m, topk), dtype=torch.float32, device=dev)
-    pidx = torch.empty((splits, m, topk), dtype=torch.int32, device=dev)
-    pcol = torch.empty((row_blocks, c), dtype=torch.float32, device=dev)
+    tkb = min(b for b in LIST_BOUNDS if b >= topk)
+    geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(d, tkb, dev.index or 0),
+                           seed_share=seed_share)
+    lists = (geo["seed_rows"] > 0) + geo["splits"]
+    pval = torch.empty((lists, m, topk), dtype=torch.float32, device=dev)
+    pidx = torch.empty((lists, m, topk), dtype=torch.int32, device=dev)
+    pcol = torch.empty((geo["row_blocks"], c), dtype=torch.float32, device=dev)
     lib = load_library()
     code = lib.lib.argkmin(
         store.data_ptr(), valid.data_ptr(), kth.data_ptr(), batch.data_ptr(),
         batch_valid.data_ptr(), val.data_ptr(), idx.data_ptr(), disp.data_ptr(),
-        pval.data_ptr(), pidx.data_ptr(), pcol.data_ptr(), c, d, m, topk, splits,
-        int(base_id), float(slack), torch.cuda.current_stream(dev).cuda_stream)
+        pval.data_ptr(), pidx.data_ptr(), pcol.data_ptr(), c, d, m, topk, geo["tkb"],
+        geo["seed_rows"], geo["splits"], int(base_id), float(slack),
+        torch.cuda.current_stream(dev).cuda_stream)
     lib.check(code, "argkmin launch")
     argkmin_candidates.launches += 1
     return val, idx, disp.view(torch.bool)

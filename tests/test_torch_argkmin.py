@@ -23,7 +23,15 @@ from repro_torch.graph.knn import (
     selection_slack,
     topk_pairs,
 )
-from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref, merge_topk
+from repro_torch.kernels.argkmin import (
+    LIST_BOUNDS,
+    ROWS_PER_BLOCK,
+    _weights,
+    argkmin_candidates,
+    argkmin_geometry,
+    argkmin_ref,
+    merge_topk,
+)
 
 torch.set_num_threads(1)
 
@@ -203,3 +211,110 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="batch"):
         argkmin_candidates(t[0], t[1], t[2], t[3][:, :4].contiguous(), t[4], base_id,
                            1e-5, k=5)
+
+
+@pytest.mark.parametrize("c,d,m,topk,resident", [
+    (131072, 16, 8192, 13, 1056),  # the main path's last call
+    (131072, 16, 8192, 13, 528),
+    (131072, 128, 8192, 13, 264),  # D = 128: fewer blocks fit
+    (1000, 16, 8, 13, 1056),  # C < one split of the main path
+    (8, 8, 3, 8, 1056),  # C = TK
+    (3001, 40, 100, 9, 1056),
+    (5000, 128, 300, 32, 264),
+    (700, 8, 40_000, 1, 1056),  # more row blocks than resident blocks
+])
+@pytest.mark.parametrize("seed_share", [0.0, 0.25])
+def test_argkmin_geometry(c, d, m, topk, resident, seed_share):
+    """The list bound is the smallest that holds TK; the seed and the
+    interleaved splits cover the store once, every split with a tile; one
+    wave of the second pass fits in ``resident``; the tile fits the static
+    shared memory."""
+    geo = argkmin_geometry(c, d, m, topk, resident=resident, seed_share=seed_share)
+    assert geo["tkb"] == min(b for b in LIST_BOUNDS if b >= topk)
+    assert (geo["row_blocks"] - 1) * ROWS_PER_BLOCK < m <= geo["row_blocks"] * ROWS_PER_BLOCK
+    assert geo["tile_rows"] % 8 == 0 and geo["tile_rows"] * d <= 4096
+    rest = c - geo["seed_rows"]
+    assert (geo["seed_rows"] == 0) == (seed_share == 0) and geo["seed_rows"] <= c
+    if rest:
+        assert 1 <= geo["splits"] <= -(-rest // geo["tile_rows"])
+        assert geo["blocks"] == geo["row_blocks"] * geo["splits"]
+        assert geo["blocks"] <= max(resident, geo["row_blocks"])
+    else:
+        assert geo["splits"] == 0 and geo["blocks"] == 0
+    assert geo["smem_bytes"] <= 48 * 1024
+
+
+def test_argkmin_geometry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="candidates"):
+        argkmin_geometry(100, 16, 8, 33)
+    with pytest.raises(ValueError, match="D=12"):
+        argkmin_geometry(100, 12, 8, 5)
+
+
+def _lex_top(val, idx, topk):
+    """Top-``topk`` of (M, W) candidates under (value desc, id asc); slots
+    whose value is -inf come back as (-inf, -1)."""
+    order = torch.argsort(idx.to(torch.int64), dim=1, stable=True)
+    val, idx = val.gather(1, order), idx.gather(1, order)
+    order = torch.argsort(val, dim=1, descending=True, stable=True)[:, :topk]
+    val, idx = val.gather(1, order), idx.gather(1, order)
+    return val, torch.where(val == -np.inf, torch.full_like(idx, -1), idx)
+
+
+def _emulate(store, valid, batch, base_id, topk, geo):
+    """The kernel's list scheme in torch: the seed's lists over rows
+    [0, seed); then split s takes tiles s, s + S, ... of the rows after the
+    seed, keeping only rows that beat the seed's TK-th value strictly (they
+    lie above every seed row); the lists are merged under (value desc, row
+    asc)."""
+    c, m = store.shape[0], batch.shape[0]
+    neg = torch.tensor(-np.inf)
+    self_row = base_id + torch.arange(m)
+
+    def lists(rows, tau):
+        w = _weights(batch, store[rows])
+        ok = valid[rows][None, :] & (rows[None, :] != self_row[:, None]) & (w > tau[:, None])
+        pad = torch.full((m, topk), -np.inf)  # a list always has TK slots
+        return _lex_top(torch.cat([torch.where(ok, w, neg), pad], 1),
+                        torch.cat([rows.to(torch.int32).expand(m, -1),
+                                   torch.full((m, topk), -1, dtype=torch.int32)], 1), topk)
+
+    seed = geo["seed_rows"]
+    seed_val, seed_idx = lists(torch.arange(seed), torch.full((m,), -np.inf))
+    vals, idxs = ([seed_val], [seed_idx]) if seed else ([], [])
+    tiles = torch.arange(seed, c).split(geo["tile_rows"])
+    for s in range(geo["splits"]):
+        rows = torch.cat(tiles[s::geo["splits"]])
+        v, i = lists(rows, seed_val[:, -1])
+        vals.append(v)
+        idxs.append(i)
+    return _lex_top(torch.cat(vals, 1), torch.cat(idxs, 1), topk)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "top_in_seed", "top_in_last_split",
+                                  "under_full_seed"])
+@pytest.mark.parametrize("seed_share", [0.0, 0.25, 1.0])
+def test_thresholded_splits_give_the_plain_versions_lists(case, seed_share):
+    """The kernel's scheme (seed lists, strict threshold, interleaved
+    splits, merge under (value desc, row asc)) gives ``argkmin_ref``'s
+    values and ids bit for bit, wherever the top-TK lies."""
+    rng = np.random.default_rng(5)
+    c, d, m, k = 1500, 8, 20, 5
+    embn, valid, kth, batch, bvalid, base_id = _make(rng, c, d, m, dup=case == "ties")
+    if case == "ties":  # mass ties at the seed's TK-th value across every split
+        embn[::3] = embn[0]
+        batch = embn[base_id:].copy()
+    elif case == "top_in_seed":
+        embn[: 40] = batch[0]
+    elif case == "top_in_last_split":
+        embn[base_id - 40: base_id] = batch[0]
+    elif case == "under_full_seed":
+        valid[: 300] = False
+    topk = min(k + SELECT_MARGIN, c)
+    geo = argkmin_geometry(c, d, m, topk, resident=6, seed_share=seed_share)
+    t = [torch.from_numpy(a) for a in (embn, valid, kth, batch, bvalid)]
+    want_val, want_idx, _ = argkmin_ref(*t, base_id, selection_slack(d), topk=topk)
+    got_val, got_idx = _emulate(t[0], t[1], t[3], base_id, topk, geo)
+    assert geo["splits"] >= 2
+    assert torch.equal(got_val.view(torch.int32), want_val.view(torch.int32))
+    assert torch.equal(got_idx, want_idx)

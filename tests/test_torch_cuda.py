@@ -16,10 +16,11 @@ from repro_torch.core.stream import StreamEngine
 from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
 from repro_torch.graph.dynamic import DynamicGraph
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
-from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_ref
+from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_launch, argkmin_ref
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
 from repro_torch.kernels.cc_hook import cc_hook_ref, cc_hook_step, connected_components_cuda
-from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
+from repro_torch.kernels.ell_propagate import (ell_propagate_ref, ell_propagate_step,
+                                               sweep_geometry, sweep_launch)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +53,65 @@ def test_kernel_gives_the_plain_versions_bits(card, n, k, nf, row_offset):
     assert ell_propagate_step.launches == before + 1
     assert torch.equal(got_f.view(torch.int32), want_f.view(torch.int32))
     assert torch.equal(got_ch, want_ch)
+
+
+def _sweep_inputs(rng, n, k, nf, frontier, pad_rows=0.0):
+    """Sweep inputs (numpy) with a frontier that is all on, all off, one
+    row per 32-row warp, or random; ``pad_rows`` of the rows all PAD."""
+    nbr = rng.integers(-1, nf, size=(n, k)).astype(np.int32)
+    nbr[rng.random(n) < pad_rows] = -1
+    wgt = (rng.uniform(0.1, 1.0, (n, k)) * (nbr >= 0)).astype(np.float32)
+    wl0 = (rng.uniform(0, 1, n) * (rng.random(n) < 0.3)).astype(np.float32)
+    wl1 = (rng.uniform(0, 1, n) * (rng.random(n) < 0.3)).astype(np.float32)
+    fr = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+          "one_per_warp": np.arange(n) % 32 == 7, "random": rng.random(n) < 0.4}[frontier]
+    return [nbr, wgt, wl0, wl1, fr, rng.uniform(0, 1, nf).astype(np.float32)]
+
+
+@pytest.mark.parametrize("k", [1, 24, 32, 33, 64])
+@pytest.mark.parametrize("frontier", ["all", "none", "one_per_warp", "random"])
+def test_sweep_kernel_chunks_and_frontiers(card, k, frontier):
+    """The warp-cooperative sweep: one chunk (K <= 32) or several, every
+    frontier pattern, a ragged last warp, all-PAD rows; the same bits."""
+    n = 3000 + k
+    args = [torch.from_numpy(a).to(card) for a in
+            _sweep_inputs(np.random.default_rng(k), n, k, n, frontier, pad_rows=0.1)]
+    got = ell_propagate_step(*args, delta=DELTA)
+    want = ell_propagate_ref(*args, delta=DELTA)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("chunk", [32, 16, 8, 5, 1])
+@pytest.mark.parametrize("frontier", ["all", "one_per_warp", "random"])
+def test_sweep_kernel_launch_geometries(card, chunk, frontier):
+    """Every column chunk (and with it both walks: by frontier row while a
+    warp has fewer frontier rows than the chunk's columns, else flat) gives
+    the plain version's bits."""
+    n, k = 2000, 24
+    args = [torch.from_numpy(a).to(card) for a in
+            _sweep_inputs(np.random.default_rng(chunk), n, k, n, frontier, pad_rows=0.1)]
+    geo = sweep_geometry(n, k, chunk=chunk)
+    got = sweep_launch(*args, DELTA, 0, geo)
+    want = ell_propagate_ref(*args, delta=DELTA)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k,nf,row_offset", [(24, 5000, 4500), (33, 1300, 700), (1, 900, 1)])
+def test_sweep_kernel_row_offset_clamps(card, k, nf, row_offset):
+    """Rows past Nf - 1 - row_offset read the clamped F_u."""
+    n = 1000
+    args = [torch.from_numpy(a).to(card) for a in
+            _sweep_inputs(np.random.default_rng(nf), n, k, nf, "random")]
+    got = ell_propagate_step(*args, delta=DELTA, row_offset=row_offset)
+    want = ell_propagate_ref(*args, delta=DELTA, row_offset=row_offset)
+    torch.cuda.synchronize()
+    assert row_offset + n > nf
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
 
 
 def test_main_path_goes_through_the_kernel(card):
@@ -104,6 +164,55 @@ def test_argkmin_kernel_gives_the_plain_versions_bits(card, c, d, m, count, k, d
     assert argkmin_candidates.launches == before + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _argkmin_case(rng, case, c=3000, d=16, m=200):
+    """argkmin inputs (numpy) that put the top-TK where the thresholded
+    splits find it hardest: all in the seed, all in the last split, or mass
+    ties at the seed's TK-th value across every split boundary."""
+    args, base = _argkmin_inputs(rng, c, d, m, c)
+    emb, batch = args[0].numpy(), args[3].numpy()
+    if case == "top_in_seed":
+        emb[:64] = batch[np.arange(64) % m]
+    elif case == "top_in_last_split":
+        emb[base - 64:base] = batch[np.arange(64) % m]
+    elif case == "ties_at_tau":
+        emb[: base: 3] = emb[1]
+        batch[:] = emb[1]
+        emb[base:] = batch
+    return args, base
+
+
+@pytest.mark.parametrize("case", ["random", "top_in_seed", "top_in_last_split", "ties_at_tau"])
+@pytest.mark.parametrize("topk", [1, 8, 9, 13, 16, 17, 32])
+def test_argkmin_list_bounds_and_seed_threshold(card, case, topk):
+    """Every list bound (TK on both sides of 8, 16, 32), M not a multiple of
+    the block rows, the top-TK in the seed, in the last split, or tied at
+    the threshold: values, ids and mask equal the plain version's."""
+    args, base = _argkmin_case(np.random.default_rng(topk), case)
+    args = [a.to(card) for a in args]
+    slack = selection_slack(16)
+    want = argkmin_ref(*args, base, slack, topk=topk)
+    for share in (0.0, 0.25, 1.0):
+        got = argkmin_launch(*args, base, slack, topk=topk, seed_share=share)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (share, g.dtype)
+
+
+@pytest.mark.parametrize("c,d,m", [(300, 16, 8), (257, 128, 3), (1, 8, 1), (2000, 32, 300),
+                                   (2000, 40, 129)])
+def test_argkmin_store_below_one_split(card, c, d, m):
+    """C below one split of the main path (the seed may be the whole store);
+    M one past a block's rows."""
+    args, base = _argkmin_inputs(np.random.default_rng(c), c, d, m, c)
+    args = [a.to(card) for a in args]
+    topk = min(13, c)
+    got = argkmin_launch(*args, base, selection_slack(d), topk=topk)
+    want = argkmin_ref(*args, base, selection_slack(d), topk=topk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_device_ingest_stream_goes_through_argkmin(card):

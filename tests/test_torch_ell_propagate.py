@@ -18,7 +18,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ell_propagate import ell_propagate_step as jax_step
 from repro_torch.kernels import _build
-from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
+from repro_torch.kernels.ell_propagate import (SWEEP_WARPS, ell_propagate_ref,
+                                               ell_propagate_step, sweep_geometry)
 
 torch.set_num_threads(1)
 
@@ -139,9 +140,29 @@ def test_build_needs_nvcc_only_at_first_launch(monkeypatch):
         _build.build()
 
 
+def test_ptxas_report_reads_registers_stack_and_spills():
+    log = """ptxas info    : Compiling entry function '_Z6kernelILi16ELi16EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi16ELi16EEvv
+    64 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers, 20736 bytes smem
+ptxas info    : Function properties for _Z6helperv
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z5emptyv' for 'sm_90a'
+ptxas info    : Used 4 registers, used 0 barriers
+"""
+    rep = _build.ptxas_report(log)
+    assert set(rep) == {"_Z6kernelILi16ELi16EEvv", "_Z5emptyv"}  # no register line: no kernel
+    k = rep["_Z6kernelILi16ELi16EEvv"]
+    assert (k.registers, k.stack_bytes, k.spill_stores, k.spill_loads) == (122, 64, 8, 4)
+    e = rep["_Z5emptyv"]
+    assert (e.registers, e.stack_bytes, e.spill_stores, e.spill_loads) == (4, 0, 0, 0)
+
+
 def test_build_inputs_are_declared():
-    assert [p.name for p in _build.sources()] == ["argkmin.cu", "bsr_spmv.cu", "cc_hook.cu",
-                                                  "ell_propagate.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "argkmin.cu", "argkmin_tkb16.cu", "argkmin_tkb32.cu", "argkmin_tkb8.cu", "bsr_spmv.cu",
+        "cc_hook.cu", "ell_propagate.cu"]
+    assert [p.name for p in _build.headers()] == ["argkmin.cuh"]
     text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text or f'extern "C" const char* {name}(' in text
@@ -153,3 +174,52 @@ def test_build_inputs_are_declared():
         assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build.source_hash()) == 64
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (31, 24), (107_200, 24), (4096, 32), (1000, 33),
+                                 (777, 64), (300, 0), (5, 7)])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+def test_sweep_geometry(n, k, chunk):
+    """One warp per 32 rows; an odd tile stride above the chunk width, so
+    lane r's reads of its row (column j at r * stride + j) hit distinct
+    banks; the tile of p and w plus F_u for every warp within 48 KB."""
+    geo = sweep_geometry(n, k, chunk=chunk)
+    assert (geo["blocks"] - 1) * 32 * SWEEP_WARPS < n <= geo["blocks"] * 32 * SWEEP_WARPS
+    kc = min(k, chunk)
+    assert geo["chunk"] == chunk and geo["stride"] % 2 == 1 and geo["stride"] > kc
+    for j in range(kc):
+        assert len({(r * geo["stride"] + j) % 32 for r in range(32)}) == 32
+    assert geo["smem_bytes"] == SWEEP_WARPS * (2 * 32 * geo["stride"] + 32) * 4 <= 48 * 1024
+
+
+def test_sweep_geometry_refuses_a_chunk_wider_than_a_warp():
+    with pytest.raises(ValueError, match="chunk"):
+        sweep_geometry(100, 24, chunk=33)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 24, 31, 32, 33, 64, 65])
+@pytest.mark.parametrize("bits", [0xFFFFFFFF, 0x80000001, 0x00000080, 0x5A5A5A5A])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_sweep_walk_covers_every_frontier_lane_once(k, bits, chunk):
+    """The kernel's walk of a warp's 32 rows, per column chunk c0 of width
+    kc: with fewer frontier rows than kc, item i is the i-th frontier row
+    (lane = column); else item t is a flat step, lane l taking e = 32 t + l,
+    row e * ceil(2^32 / kc) >> 32 and column e - row * kc.  Every frontier
+    (row, column) comes exactly once, no other, and a row's columns come
+    chunk by chunk in column order."""
+    rows = [r for r in range(32) if bits >> r & 1]
+    seen = []
+    for c0 in range(0, k, chunk):
+        kc = min(chunk, k - c0)
+        magic = ((1 << 32) + kc - 1) // kc
+        if len(rows) < kc:
+            seen += [(r, c0 + lane) for r in rows for lane in range(32) if lane < kc]
+            continue
+        for t in range(kc):
+            for lane in range(32):
+                e = t * 32 + lane
+                r = (e * magic) >> 32
+                assert r == e // kc < 32
+                if bits >> r & 1:
+                    seen.append((r, c0 + e - r * kc))
+    assert sorted(seen) == [(r, c) for r in rows for c in range(k)]
