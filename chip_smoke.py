@@ -16,11 +16,12 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``bsr_spmv`` and the Shiloach–Vishkin step ``cc_hook_step``, on edge
    cases and at the main paths' widths, must give the same bits.  The
    sweep's cases include K = 1, 24, 32, 33, 64 with the frontier all on,
-   all off, one row a warp or random, all-PAD rows, the row_offset clamp
-   and every column chunk; argkmin's every list bound (TK = 1, 8, 9, 13,
-   16, 17, 32) with the top-TK in the seed, in the last split or tied at
-   the threshold, with and without a seed pass, C below one split and M
-   off the block rows.  Components and the supernode init agree with the
+   all off, one row a warp or random, all-PAD rows, the row_offset clamp,
+   both walks of a column chunk on either side of their switch and arrays
+   that do not start on 16 bytes; argkmin's every list bound (TK = 1, 8,
+   9, 13, 16, 17, 32) with the top-TK in the first split, in the last
+   split or tied at the threshold, C below one split and M off the block
+   rows.  Components and the supernode init agree with the
    CPU; small streams
    through ``DynLP`` (default backend, and ``backend="bsr"``) on the card
    agree with the CPU within 20·δ.
@@ -57,12 +58,12 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``ref`` on the staged problem (the same iterates within 1e-5 over a
    fixed number of sweeps with every row on, the same predictions where
    |F − 0.5| > 20·δ, the δ-stopped gap printed); the sweep kernel on
-   every sweep of the ``ell_cuda`` solve, beside an empty kernel launch
-   timed the same way and narrower column chunks; argkmin at the last
-   batch's inputs against its plain version and a three-call library
-   yardstick, beside the no-FMA floor and with a seed pass, and (checked
-   bitwise first) at D = 128; ``cc_hook_step`` on every step of phase 6.
-   Each beside its bound.
+   every sweep of the ``ell_cuda`` solve (``--save-sweeps`` writes their
+   inputs for ``tools/torch_kernel_times.py``), beside an empty kernel
+   launch timed the same way; argkmin at the last batch's inputs against
+   its plain version and a three-call library yardstick, beside the no-FMA
+   floor, and (checked bitwise first) at D = 128; ``cc_hook_step`` on
+   every step of phase 6.  Each beside its bound.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -101,23 +102,20 @@ from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E4
 from repro_torch.ingest import incremental_knn  # noqa: E402
 from repro_torch.kernels._build import load_library, ptxas_report  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
-from repro_torch.kernels.argkmin import (SEED_SHARE, argkmin_candidates,  # noqa: E402
-                                         argkmin_geometry, argkmin_launch, argkmin_ref,
-                                         resident_blocks)
+from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_geometry,  # noqa: E402
+                                         argkmin_launch, argkmin_ref, resident_blocks)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref  # noqa: E402
 from repro_torch.kernels.cc_hook import (cc_hook_ref, cc_hook_step,  # noqa: E402
                                          connected_components_cuda)
-from repro_torch.kernels.ell_propagate import (ell_propagate_ref, ell_propagate_step,  # noqa: E402
-                                               sweep_geometry, sweep_launch)
+from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
+from tools.gpu_timing import QueueError, enqueue, gpu_times  # noqa: E402
 
 DELTA = 1e-4
 TOL = 20 * DELTA  # port vs port across backends/devices (the reference's own bound)
 BSR_ATOL = 2e-3  # a bsr stream against an ELL one (the reference's test bound)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-# sweep column chunks timed beside the default (32)
-SWEEP_CHUNKS = (16, 8)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
@@ -130,10 +128,10 @@ def card_line() -> str:
 
 def kernel_label(mangled: str) -> str:
     """``argkmin_tile_kernel<16,16>`` from a mangled kernel name."""
-    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E|I\w+?E)?", mangled)
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E|I\w+?E)?", mangled)
     if m is None:
         return mangled[:60]
-    args = re.findall(r"Li(\d+)E", m.group(2) or "") or (
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "") or (
         [re.sub(r"^I\d*|E$", "", m.group(2))] if m.group(2) else [])
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
@@ -175,57 +173,6 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-
-def _enqueue(calls):
-    pairs = []
-    for fn in calls:
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    return pairs
-
-
-def gpu_times(calls, per_sleep):
-    """Device time (ms) of each call in ``calls``: CUDA events around each,
-    queued behind a sleep so host launch time does not leak into the
-    readings.  Each sleep holds ``per_sleep`` calls: the card's launch
-    queue is finite, and a full one makes the host wait for the card to
-    wake.  Each sleep is checked: if the card woke before the last call was
-    queued, the readings could hold host time, so the sleep is doubled and
-    those calls are queued again."""
-    _enqueue(calls[:3])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _enqueue(calls)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / len(calls)
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    torch.cuda._sleep(1_000_000)
-    e.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 1_000_000 / max(s.elapsed_time(e), 1e-3)
-    times = []
-    for i in range(0, len(calls), per_sleep):
-        chunk = calls[i:i + per_sleep]
-        sleep_ms = 2 * host_ms * len(chunk) + 1
-        while True:
-            torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
-            awake = torch.cuda.Event()
-            awake.record()
-            pairs = _enqueue(chunk)
-            queued_asleep = not awake.query()
-            torch.cuda.synchronize()
-            if queued_asleep:
-                break
-            require(sleep_ms < 2_000, "could not queue the timed calls behind a sleep")
-            sleep_ms *= 2
-        times += [s.elapsed_time(e) for s, e in pairs]
-    return times
-
-
 def sweep_bound(n, k, nf, rows):
     """The least time (ms) an H100 takes for one sweep whose frontier has
     ``rows`` rows, and what bounds it.  Bytes: F read once (4 Nf), frontier
@@ -259,11 +206,9 @@ def sweep_inputs(rng, n, k, nf=None, pad_rows=0.0, dead_rows=0.0, frontier_p=0.6
     return [torch.from_numpy(a).cuda() for a in (nbr, wgt, wl0, wl1, frontier, f)]
 
 
-def check_sweep(name, args, delta=1e-3, row_offset=0, geo=None):
-    if geo is None:
-        got_f, got_ch = ell_propagate_step(*args, delta=delta, row_offset=row_offset)
-    else:
-        got_f, got_ch = sweep_launch(*args, delta, row_offset, geo)
+def check_sweep(name, args, delta=1e-3, row_offset=0):
+    """The sweep kernel against its plain version, bitwise."""
+    got_f, got_ch = ell_propagate_step(*args, delta=delta, row_offset=row_offset)
     want_f, want_ch = ell_propagate_ref(*args, delta=delta, row_offset=row_offset)
     torch.cuda.synchronize()
     err = float((got_f - want_f).abs().max()) if got_f.numel() else 0.0
@@ -302,19 +247,17 @@ def argkmin_inputs(rng, c, d, m, count, k=5, dead=0.1, dup=False, real=None, kth
     return dict(args=args, base=base, slack=selection_slack(d), k=k)
 
 
-def check_argkmin(name, inp, topk=None, seed_share=None):
+def check_argkmin(name, inp, topk=None):
     """The kernel against its plain version: values, ids and mask bitwise.
-    With ``topk`` (or ``seed_share``) the kernel is launched for that list
-    width (seed) directly, else through ``argkmin_candidates``."""
+    With ``topk`` the kernel is launched for that list width directly, else
+    through ``argkmin_candidates``."""
     args, base, slack, k = inp["args"], inp["base"], inp["slack"], inp["k"]
     c, d = args[0].shape
-    if topk is None and seed_share is None:
+    if topk is None:
         topk = min(k + SELECT_MARGIN, c)
         got = argkmin_candidates(*args, base, slack, k=k)
     else:
-        topk = min(k + SELECT_MARGIN, c) if topk is None else topk
-        got = argkmin_launch(*args, base, slack, topk=topk,
-                             seed_share=SEED_SHARE if seed_share is None else seed_share)
+        got = argkmin_launch(*args, base, slack, topk=topk)
     want = argkmin_ref(*args, base, slack, topk=topk)
     torch.cuda.synchronize()
     fin = torch.isfinite(want[0])
@@ -330,13 +273,13 @@ def check_argkmin(name, inp, topk=None, seed_share=None):
 
 def argkmin_placed(rng, case, c=3000, d=16, m=200):
     """argkmin inputs that put the top-TK where the thresholded splits find
-    it hardest: all in the seed (the lowest rows), all in the last split
-    (just below the batch), or mass ties at the seed's TK-th value across
+    it hardest: all in the first split (the lowest rows), all in the last
+    split (just below the batch), or mass ties at the TK-th value across
     every split boundary.  M = 200 is not a multiple of the block rows."""
     inp = argkmin_inputs(rng, c, d, m, c)
     emb, batch = inp["args"][0], inp["args"][3]
     base = inp["base"]
-    if case == "top-TK in the seed":
+    if case == "top-TK in the first split":
         emb[:64] = batch[torch.arange(64, device=batch.device) % m]
     elif case == "top-TK in the last split":
         emb[base - 64:base] = batch[torch.arange(64, device=batch.device) % m]
@@ -455,7 +398,8 @@ def phase_kernels():
     ]
     # the warp-cooperative walk: one column chunk or several, a frontier
     # all on, all off, one row per warp or random, all-PAD rows, the
-    # clamp, and every warp mode and chunk width of the launch geometry
+    # clamp, both walks of a chunk on either side of their switch, arrays
+    # that do not start on 16 bytes
     for k in (1, 24, 32, 33, 64):
         for name, kw in (("all on", dict(frontier_p=1.0)), ("all off", dict(frontier_p=0.0)),
                          ("one row a warp", dict(one_per_warp=True)),
@@ -464,12 +408,17 @@ def phase_kernels():
                                     delta=DELTA))
     errs.append(check_sweep("K=33 row_offset clamps", sweep_inputs(rng, 1000, 33, nf=1300),
                             row_offset=700))
-    for chunk in (16, 8, 5, 1):
-        for name, kw in (("all on", dict(frontier_p=1.0)), ("one row a warp", dict(
-                one_per_warp=True)), ("random", {})):
-            args = sweep_inputs(rng, 2000, 24, pad_rows=0.1, **kw)
-            errs.append(check_sweep(f"chunk={chunk} {name}", args, delta=DELTA,
-                                    geo=sweep_geometry(2000, 24, chunk=chunk)))
+    for k in (24, 40):  # 23 / 24 / 25 frontier rows a warp: by row, flat, flat
+        for rows in (23, 24, 25):
+            args = sweep_inputs(rng, 2000, k, pad_rows=0.1, frontier_p=0.0)
+            for w0 in range(0, 2000, 32):
+                args[4][w0:w0 + rows] = True
+            errs.append(check_sweep(f"K={k} {rows} rows a warp", args, delta=DELTA))
+    args = sweep_inputs(rng, 2000, 24)
+    for i in (0, 1):  # nbr and wgt one entry past a 16-byte boundary
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device="cuda")
+        args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+    errs.append(check_sweep("arrays off 16 bytes", args, delta=DELTA))
 
     c, d, m = 131072, 16, 8192  # the second main path's last argkmin call
     cases = [
@@ -485,19 +434,17 @@ def phase_kernels():
     ]
     argkmin_errs = [check_argkmin(name, inp) for name, inp in cases]
     # every list bound (TK on both sides of 8, 16, 32) where the top-TK lies
-    # in the seed, in the last split, or ties at the threshold, with and
-    # without a seed pass; C below one split, M one past a block
-    for case in ("random", "top-TK in the seed", "top-TK in the last split",
+    # in the first split, in the last split, or ties at the threshold; C
+    # below one split, M one past a block
+    for case in ("random", "top-TK in the first split", "top-TK in the last split",
                  "mass ties at the threshold"):
         inp = argkmin_placed(np.random.default_rng(11), case)
         for topk in (1, 8, 9, 13, 16, 17, 32):
-            for share in (0.0, 0.25):
-                argkmin_errs.append(check_argkmin(f"{case}, seed {share}", inp, topk=topk,
-                                                  seed_share=share))
+            argkmin_errs.append(check_argkmin(case, inp, topk=topk))
     for c_, d_, m_ in ((300, 16, 8), (257, 128, 3), (1, 8, 1), (2000, 40, 129)):
         argkmin_errs.append(check_argkmin("C < one split, M % 128 != 0",
                                           argkmin_inputs(rng, c_, d_, m_, c_),
-                                          topk=min(13, c_), seed_share=0.25))
+                                          topk=min(13, c_)))
     inp = cases[2][1]  # every old valid row has an empty slot: all displaced
     old = inp["args"][1] & (torch.arange(1024, device="cuda") < inp["base"])
     require(torch.equal(argkmin_candidates(*inp["args"], inp["base"], inp["slack"],
@@ -829,9 +776,10 @@ def phase_stream(vertices, batch_size, prefix, backend=None):
                             views=views))
 
 
-def phase_timing(last):
+def phase_timing(last, save_sweeps=None):
     """The kernel and its plain version at the main path's inputs: every
-    sweep of the last batch's solve, kept from a second run of that solve."""
+    sweep of the last batch's solve, kept from a second run of that solve
+    (and written to ``save_sweeps``, an ``.npz``, when given)."""
     p = last["problem"]
     n, k = p.nbr.shape
     sweeps = []
@@ -855,6 +803,8 @@ def phase_timing(last):
         require(torch.equal(got_f.view(torch.int32), want_f.view(torch.int32))
                 and torch.equal(got_ch, want_ch), "a main-path sweep: kernel != plain version")
     print(f"   all {len(sweeps)} sweeps of the last batch: kernel == plain version bitwise")
+    if save_sweeps:
+        save_sweep_inputs(save_sweeps, sweeps)
 
     first = sweeps[0]
     rows = [int(a[4].sum()) for a in sweeps]
@@ -880,25 +830,28 @@ def phase_timing(last):
           f"plain {sum(p_ms):.3f} ms  bound {sum(b_ms):.4f} ms  "
           f"kernel/bound {sum(k_ms) / sum(b_ms):.2f}x  "
           f"library: no single PyTorch call")
-    lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    empty = gpu_times([lambda: lib.check(lib.lib.empty_launch(stream), "empty launch")] * 200,
-                      per_sleep=100)
+    # an empty launch: PyTorch's one-thread spin kernel asked for 0 cycles
+    empty = gpu_times([lambda: torch.cuda._sleep(0)] * 200, per_sleep=100)
     print(f"   per sweep, mean of {len(sweeps)}: kernel {np.mean(k_ms) * 1e3:.2f} us  bound "
           f"{np.mean(b_ms) * 1e3:.2f} us  an empty kernel launch timed the same way: "
           f"{statistics.median(empty) * 1e3:.2f} us (median of 200)")
-    # narrower column chunks on the same sweeps (less shared memory a block)
-    for chunk in SWEEP_CHUNKS:
-        geo = sweep_geometry(n, k, chunk=chunk)
-        v_ms = gpu_times([lambda a=a: sweep_launch(*a, DELTA, 0, geo) for a in sweeps],
-                         per_sleep=100)
-        print(f"   variant chunk={chunk:2d}: mean {np.mean(v_ms) * 1e3:.2f} us over the "
-              f"{len(sweeps)} sweeps")
     by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
     # the record is per launch, averaged over the batch's sweeps
     m = len(sweeps)
     return dict(ms=sum(k_ms) / m, plain_ms=sum(p_ms) / m, bound_ms=sum(b_ms) / m,
                 max_abs_err=err, bound_by=by)
+
+
+def save_sweep_inputs(path, sweeps):
+    """The sweeps' inputs for ``tools/torch_kernel_times.py --sweeps``: the
+    arrays every sweep shares once, the frontier and F of each."""
+    nbr, wgt, wl0, wl1 = (t.cpu().numpy() for t in sweeps[0][:4])
+    require(all(a[0] is sweeps[0][0] and a[1] is sweeps[0][1] for a in sweeps),
+            "the sweeps of one solve share nbr and wgt")
+    np.savez(path, nbr=nbr, wgt=wgt, wl0=wl0, wl1=wl1, delta=np.float32(DELTA),
+             frontier=torch.stack([a[4] for a in sweeps]).cpu().numpy(),
+             f=torch.stack([a[5] for a in sweeps]).cpu().numpy())
+    print(f"   wrote the {len(sweeps)} sweeps' inputs to {path}")
 
 
 def phase_argkmin_timing(inp):
@@ -942,11 +895,6 @@ def phase_argkmin_timing(inp):
     geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(
         d, argkmin_geometry(c, d, m, topk)["tkb"], 0))
     print(f"   geometry: {json.dumps(geo)}")
-    for share in (0.0625, 0.25):  # a seed pass and its threshold
-        s_ms = statistics.median(gpu_times(
-            [lambda: argkmin_launch(*args, base, slack, topk=topk, seed_share=share)] * 10,
-            per_sleep=10))
-        print(f"   variant seed share {share}: {s_ms:.3f} ms")
     wide = argkmin_inputs(np.random.default_rng(7), c, 128, m, base + m,
                           real=int(args[4].sum()))
     check_argkmin("main-path shape, D=128", wide)
@@ -967,9 +915,9 @@ def library_times(fn, reps):
     a sleep), CUDA events around each call after a warm-up, said so."""
     try:
         return gpu_times([fn] * reps, per_sleep=1)
-    except AssertionError:
+    except QueueError:
         print("   the library call waits on the card; timed with bare CUDA events")
-        pairs = _enqueue([fn] * reps)
+        pairs = enqueue([fn] * reps)
         torch.cuda.synchronize()
         return [s.elapsed_time(e) for s, e in pairs]
 
@@ -1179,6 +1127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--vertices", type=int, default=20_000)
     ap.add_argument("--stream-vertices", type=int, default=100_000)
     ap.add_argument("--batch", type=int, default=5_000)
+    ap.add_argument("--save-sweeps", metavar="NPZ",
+                    help="write the inputs of the timed sweeps there, for "
+                         "tools/torch_kernel_times.py --sweeps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1206,7 +1157,7 @@ def main(argv=None) -> int:
         cc = phase_cc(out3["staged"]["host"].nbr)
     with Phase("timing at path 3's last batch"):
         tb, ell_last = phase_bsr_timing(out3)
-        tm = phase_timing(ell_last)
+        tm = phase_timing(ell_last, args.save_sweeps)
         ta = phase_argkmin_timing(out3["argkmin"])
         tc = phase_cc_timing(cc)
     record = {"kernels": [{

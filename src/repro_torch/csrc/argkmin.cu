@@ -17,15 +17,15 @@
 // order, so both give the same bits.  TF32 (~1e-3 error) would swamp the
 // selection slack of 1e-5 + 1e-7 * D.
 //
-// Design: two to four launches on one stream (argkmin.cuh holds the
+// Design: three launches on one stream (argkmin.cuh holds the
 // templates; argkmin_tkb{8,16,32}.cu instantiate them for every D = 8, 16,
 // ..., 128 at one list bound TKB each, the smallest of 8, 16, 32 that holds
 // TK, so a list is no longer than it needs to be and the three files build
 // in parallel).  The wrapper (kernels/argkmin.py::argkmin_geometry) chooses
 // the geometry.  At the main path's (C, D, M, TK) = (131072, 16, 8192, 13):
 // TKB 16, 64 row blocks of 128 batch rows, tiles of 256 store rows, 8
-// splits (4 blocks of 122 registers fit an SM: 528 on 132 SMs), 512
-// blocks, 21 KB of static shared memory a block, no seed.
+// splits (4 blocks of 121 registers fit an SM: 528 on 132 SMs), 512
+// blocks, 21 KB of static shared memory a block.
 //  1. argkmin_tile_kernel<D, TKB>, grid (ceil(M / 128), S): a block owns 128
 //     batch rows (one per thread, its row held in registers) and every S-th
 //     tile of 4096 / D store rows, staged in shared memory (every thread
@@ -44,12 +44,6 @@
 //     the values each lane keeps, 2 and 1 finish the max; 9 shuffles for 8
 //     rows instead of 40), then the four warps through shared memory, into
 //     pcol[blockIdx.x][row].
-//     With a seed (seed_rows > 0, off by default: timed slower, PERF.md),
-//     a first launch of the same kernel over rows [0, seed) writes split 0,
-//     and the pass over the rest lets a row enter only if w > tau_i, the
-//     TK-th value of batch row i's seed list (-inf while under-full).
-//     That stays exact: every later row lies above every seed row, so one
-//     that ties tau_i ranks below all TK seed entries.
 //  2. argkmin_merge_kernel<TKB>: one thread per batch row merges the split
 //     lists, inserting an entry only if it ranks above the kept TK-th one
 //     under (w desc, row asc): with interleaved splits a tie may sit in any
@@ -57,7 +51,7 @@
 //  3. argkmin_disp_kernel: one thread per store row reduces pcol over the
 //     row blocks and writes disp.
 // Blocks run in no order; nothing carries from one to the next except
-// through the scratch buffers pval, pidx (seed + S, M, TK) and pcol
+// through the scratch buffers pval, pidx (S, M, TK) and pcol
 // (ceil(M / 128), C), which the caller allocates.
 //
 // Bound: operation-bound.  2 M C_valid D flops (a multiply and an add per
@@ -103,30 +97,30 @@ __global__ void argkmin_disp_kernel(const float* __restrict__ pcol,
 
 }  // namespace
 
-// Launches the four kernels on `stream` and returns the first launch error
+// Launches the three kernels on `stream` and returns the first launch error
 // (0 on success; cudaErrorInvalidValue for a D or a list bound the kernels
 // are not built for).  The caller has checked shapes, types, contiguity,
 // 16-byte alignment of `store`, 8 <= D <= 128 with D % 8 == 0,
 // 1 <= tk <= tkb, m, c >= 1, that c * D and base_id + m fit in 32 bits, and
-// chosen 0 <= seed_rows <= c and splits >= 1 when seed_rows < c.
+// chosen splits >= 1.
 extern "C" int argkmin(const void* store, const void* valid, const void* kth,
                        const void* batch, const void* bvalid, void* val, void* idx,
                        void* disp, void* pval, void* pidx, void* pcol, int c, int d,
-                       int m, int tk, int tkb, int seed_rows, int splits, int base_id,
-                       float slack, void* stream) {
+                       int m, int tk, int tkb, int splits, int base_id, float slack,
+                       void* stream) {
   int err;
   switch (tkb) {
     case 8:
       err = argkmin_lists_tkb8(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                               m, tk, seed_rows, splits, base_id, stream);
+                               m, tk, splits, base_id, stream);
       break;
     case 16:
       err = argkmin_lists_tkb16(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                                m, tk, seed_rows, splits, base_id, stream);
+                                m, tk, splits, base_id, stream);
       break;
     case 32:
       err = argkmin_lists_tkb32(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                                m, tk, seed_rows, splits, base_id, stream);
+                                m, tk, splits, base_id, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -140,7 +134,7 @@ extern "C" int argkmin(const void* store, const void* valid, const void* kth,
 }
 
 // Blocks of the tile kernel for (d, tkb) that the current card holds at
-// once; the wrapper sizes the thresholded pass to one such wave.  -1 for a
+// once; the wrapper sizes the pass to one such wave.  -1 for a
 // (d, tkb) the kernels are not built for, or an error.
 extern "C" int argkmin_resident_blocks(int d, int tkb) {
   switch (tkb) {

@@ -94,22 +94,18 @@ __device__ __forceinline__ void kth_of(const float (&v)[TKB], const int (&ix)[TK
     }
 }
 
-// One split of the pass over store rows [lo0, hi0) for 128 batch rows:
+// One split of the pass over the store's C rows for 128 batch rows:
 // tiles blockIdx.y, blockIdx.y + S, blockIdx.y + 2 S, ... (S = gridDim.y),
 // so every split meets its share of dead rows and of the store's unused
 // capacity.  The split's top-TK list of every batch row goes to
-// pval/pidx[split0 + blockIdx.y], the max over the block's valid batch rows
-// of w for every store row to pcol[blockIdx.x].  With `seed` (the lists of
-// the seed pass, over rows below lo0), a row enters a list only if w > the
-// seed list's TK-th value tau: a row of this pass that ties tau ranks below
-// all TK seed entries.
+// pval/pidx[blockIdx.y], the max over the block's valid batch rows
+// of w for every store row to pcol[blockIdx.x].
 template <int D, int TKB>
 __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
     const float* __restrict__ store, const uint8_t* __restrict__ valid,
     const float* __restrict__ batch, const uint8_t* __restrict__ bvalid,
-    const float* __restrict__ seed, float* __restrict__ pval, int* __restrict__ pidx,
-    float* __restrict__ pcol, int c, int m, int tk, int lo0, int hi0, int split0,
-    int base_id) {
+    float* __restrict__ pval, int* __restrict__ pidx, float* __restrict__ pcol, int c, int m,
+    int tk, int base_id) {
   // store rows per step (one transposing max each): 8, or 4 for D > 64,
   // where the batch row's D registers leave less room
   constexpr int kRowStep = D > 64 ? 4 : 8;
@@ -136,13 +132,12 @@ __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
     v[p] = -CUDART_INF_F;
     ix[p] = -1;
   }
-  // an inactive thread never inserts: its threshold is +inf
-  const float tau = !active ? CUDART_INF_F
-                            : (seed != nullptr ? seed[(size_t)i * tk + tk - 1] : -CUDART_INF_F);
-  float thr = tau;  // max(tau, the list's TK-th value)
+  // the list's TK-th value (-inf while under-full); an inactive thread
+  // never inserts: its threshold is +inf
+  float thr = active ? -CUDART_INF_F : CUDART_INF_F;
 
-  for (int t0 = lo0 + blockIdx.y * kTileRows; t0 < hi0; t0 += gridDim.y * kTileRows) {
-    const int rows = min(kTileRows, hi0 - t0);
+  for (int t0 = blockIdx.y * kTileRows; t0 < c; t0 += gridDim.y * kTileRows) {
+    const int rows = min(kTileRows, c - t0);
     __syncthreads();  // the previous tile and its wmax are consumed
     const float4* src = reinterpret_cast<const float4*>(store + (size_t)t0 * D);
     float4* dst = reinterpret_cast<float4*>(tile);
@@ -195,7 +190,7 @@ __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
           float kw;
           int kj;
           kth_of<TKB>(v, ix, tk, kw, kj);
-          thr = fmaxf(tau, kw);
+          thr = kw;
         }
       }
 #pragma unroll
@@ -215,7 +210,7 @@ __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
   }
 
   if (active) {
-    const size_t out = ((size_t)(split0 + blockIdx.y) * m + i) * tk;
+    const size_t out = ((size_t)blockIdx.y * m + i) * tk;
 #pragma unroll
     for (int p = 0; p < TKB; ++p) {
       if (p < tk) {
@@ -266,25 +261,23 @@ __global__ void argkmin_merge_kernel(const float* __restrict__ pval,
 
 template <int D, int TKB>
 cudaError_t launch_tile(dim3 grid, cudaStream_t s, const float* store, const uint8_t* valid,
-                        const float* batch, const uint8_t* bvalid, const float* seed,
-                        float* pval, int* pidx, float* pcol, int c, int m, int tk, int lo0,
-                        int hi0, int split0, int base_id) {
-  argkmin_tile_kernel<D, TKB><<<grid, kRows, 0, s>>>(store, valid, batch, bvalid, seed, pval,
-                                                     pidx, pcol, c, m, tk, lo0, hi0, split0,
-                                                     base_id);
+                        const float* batch, const uint8_t* bvalid, float* pval, int* pidx,
+                        float* pcol, int c, int m, int tk, int base_id) {
+  argkmin_tile_kernel<D, TKB><<<grid, kRows, 0, s>>>(store, valid, batch, bvalid, pval, pidx,
+                                                     pcol, c, m, tk, base_id);
   return cudaGetLastError();
 }
 
 #define REPRO_ARGKMIN_D(DD) \
   case DD:                  \
-    return launch_tile<DD, TKB>(grid, s, store, valid, batch, bvalid, seed, pval, pidx, pcol, \
-                                c, m, tk, lo0, hi0, split0, base_id);
+    return launch_tile<DD, TKB>(grid, s, store, valid, batch, bvalid, pval, pidx, pcol, c, m, \
+                                tk, base_id);
 
 template <int TKB>
 cudaError_t tile_pass(int d, dim3 grid, cudaStream_t s, const float* store,
                       const uint8_t* valid, const float* batch, const uint8_t* bvalid,
-                      const float* seed, float* pval, int* pidx, float* pcol, int c, int m,
-                      int tk, int lo0, int hi0, int split0, int base_id) {
+                      float* pval, int* pidx, float* pcol, int c, int m, int tk,
+                      int base_id) {
   switch (d) {
     REPRO_ARGKMIN_D(8)
     REPRO_ARGKMIN_D(16)
@@ -345,15 +338,13 @@ int resident_blocks_for(int d) {
   }
 }
 
-// The seed pass over rows [0, seed_rows) (none when seed_rows is 0), the
-// pass over the rows after it in `splits` interleaved splits (thresholded
-// by the seed's lists when there is a seed), and the merge of all the
-// lists.  Returns the first launch error.
+// The pass over the store in `splits` interleaved splits and the merge of
+// their lists.  Returns the first launch error.
 template <int TKB>
 int argkmin_lists(const void* store, const void* valid, const void* batch,
                   const void* bvalid, void* val, void* idx, void* pval, void* pidx,
-                  void* pcol, int c, int d, int m, int tk, int seed_rows, int splits,
-                  int base_id, void* stream) {
+                  void* pcol, int c, int d, int m, int tk, int splits, int base_id,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int row_blocks = (m + kRows - 1) / kRows;
   const float* st = (const float*)store;
@@ -363,20 +354,11 @@ int argkmin_lists(const void* store, const void* valid, const void* batch,
   float* pv = (float*)pval;
   int* pi = (int*)pidx;
   float* pc = (float*)pcol;
-  const int seeded = seed_rows > 0 ? 1 : 0;
-  cudaError_t err;
-  if (seeded) {
-    err = tile_pass<TKB>(d, dim3(row_blocks, 1), s, st, va, ba, bv, nullptr, pv, pi, pc, c, m,
-                         tk, 0, seed_rows, 0, base_id);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (splits > 0) {
-    err = tile_pass<TKB>(d, dim3(row_blocks, splits), s, st, va, ba, bv, seeded ? pv : nullptr,
-                         pv, pi, pc, c, m, tk, seed_rows, c, seeded, base_id);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err =
+      tile_pass<TKB>(d, dim3(row_blocks, splits), s, st, va, ba, bv, pv, pi, pc, c, m, tk, base_id);
+  if (err != cudaSuccess) return (int)err;
   argkmin_merge_kernel<TKB><<<(m + 255) / 256, 256, 0, s>>>(pv, pi, (float*)val, (int*)idx, m,
-                                                           tk, seeded + splits);
+                                                           tk, splits);
   return (int)cudaGetLastError();
 }
 
@@ -385,4 +367,4 @@ int argkmin_lists(const void* store, const void* valid, const void* batch,
 #define REPRO_ARGKMIN_LISTS_ARGS                                                           \
   const void *store, const void *valid, const void *batch, const void *bvalid, void *val, \
       void *idx, void *pval, void *pidx, void *pcol, int c, int d, int m, int tk,         \
-      int seed_rows, int splits, int base_id, void *stream
+      int splits, int base_id, void *stream

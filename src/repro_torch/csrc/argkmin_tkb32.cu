@@ -5,8 +5,7 @@
 
 extern "C" int argkmin_lists_tkb32(REPRO_ARGKMIN_LISTS_ARGS) {
   return repro_argkmin::argkmin_lists<32>(store, valid, batch, bvalid, val, idx, pval, pidx,
-                                          pcol, c, d, m, tk, seed_rows, splits, base_id,
-                                          stream);
+                                          pcol, c, d, m, tk, splits, base_id, stream);
 }
 
 extern "C" int argkmin_resident_tkb32(int d) {

@@ -17,27 +17,32 @@
 // bytes.  Off-frontier rows write F_u and `changed` at once (coalesced) and
 // read none of their nbr / wgt / wl0 / wl1 bytes; a warp with no frontier
 // row stops there.  The warp's rows are contiguous in nbr and wgt, so it
-// walks them in column chunks of at most 32 (the wrapper's `chunk`, 32 by
-// default), item by item: while the warp has fewer frontier rows than the
-// chunk has columns, an item is one frontier row (lane = column); else it
-// is one step of a flat walk over the chunk, lane l taking element
-// e = 32 t + l (row e / kc, column e % kc, by a multiply-high with a
-// per-chunk magic number), so the lanes of one load read 128 consecutive
-// bytes.  kItems items at a time, in three phases, so that all their loads
-// are in flight together: the lane's nbr / wgt elements (a lane with
-// nothing to do reads the segment's first element instead: in bounds, one
-// sector for all), the F[v] gathers (L2 hits), then d = F_v - F_u and
-// p = w * d with __fsub_rn / __fmul_rn into the row's slot of a
-// shared-memory tile whose row stride is odd, so that in the fold lane r's
-// reads of its own row hit 32 distinct banks.  Lane r then folds row r's
+// walks them in column chunks of at most kChunk = 32, item by item: while
+// the warp has fewer frontier rows than the chunk has columns, an item is
+// one frontier row (lane = column); else it is one step of a flat walk over
+// the chunk, lane l taking element e = 32 t + l (row e / kc, column e % kc,
+// by a multiply-high with a per-chunk magic number), so the lanes of one
+// load read 128 consecutive bytes.  kItems items at a time, in three
+// phases, so that all their loads are in flight together: the lane's nbr /
+// wgt elements (a lane with nothing to do reads the segment's first element
+// instead: in bounds, one sector for all), the F[v] gathers (L2 hits), then
+// d = F_v - F_u and p = w * d with __fsub_rn / __fmul_rn into the row's
+// slot of a shared-memory tile whose row stride is odd, so that in the fold
+// lane r's reads of its own row hit 32 distinct banks.  Lane r then folds row r's
 // chunk into its running nbr_term / wsum in column order with __fadd_rn
 // and, after the last chunk, finishes Wall, dF, F' and `changed` exactly
 // as the plain version does.  The products and the order of every sum are
 // the plain PyTorch version's (repro_torch/kernels/ell_propagate.py), so
-// the two give the same bits.  The wrapper (ell_propagate.py::
-// sweep_geometry) chooses the block count, the chunk and the odd stride and
-// passes the dynamic shared memory, kWarps * (2 * 32 * stride + 32) * 4
-// bytes (26 KB at K = 24).
+// the two give the same bits.  The launcher below sizes the grid (one warp
+// per 32 rows), the odd stride (min(K, 32) + 1 or + 2) and the dynamic
+// shared memory, kWarps * (2 * 32 * stride + 32) * 4 bytes (26 KB at K = 24,
+// 34 KB at most).
+//
+// Timed on an H100 against one thread a row, with its loads one column at a
+// time (PR 11's design) or a row's loads batched in 16-byte vectors
+// (PERF.md): the fastest of the three on the main path's own sweeps and
+// with every row on the frontier, the slowest on synthetic frontiers spread
+// at random over 5% to a third of the rows.
 //
 // Bound: every row reads frontier (1 byte) and writes F' and changed (5
 // bytes); F is read once (4 bytes per label); a frontier row also reads its
@@ -45,24 +50,25 @@
 // 6 N + 4 Nf + |frontier| (8K + 8) bytes from device memory, 2.4 us mean
 // over the main path's sweeps at (N, K) = (107200, 24).  Operations (4 per
 // lane, 12 per row) are far below.  On the card a sweep takes the order of
-// a launch: an empty kernel timed the same way takes 4.8 us, and a warp's
-// dependent chain (frontier byte, ballot, nbr, F[v], fold, store) adds a
-// few microseconds however few rows are on the frontier.
+// a launch: an empty kernel timed the same way takes about 4.8 us, and a
+// warp's dependent chain (frontier byte, ballot, nbr, F[v], fold, store)
+// adds a few microseconds however few rows are on the frontier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;  // warps per block; keep in step with ell_propagate.py
-constexpr int kItems = 8;  // items of a warp's walk whose loads are in flight together
+constexpr int kWarps = 4;   // warps per block
+constexpr int kChunk = 32;  // columns of a warp's rows staged in shared memory at a time
+constexpr int kItems = 8;   // items of a warp's walk whose loads are in flight together
 
 __global__ void __launch_bounds__(kWarps * 32) ell_propagate_kernel(
     const int32_t* __restrict__ nbr, const float* __restrict__ wgt,
     const float* __restrict__ wl0, const float* __restrict__ wl1,
     const uint8_t* __restrict__ frontier, const float* __restrict__ f,
     float* __restrict__ fout, uint8_t* __restrict__ changed,
-    int n, int k, int nf, float delta, int row_offset, int chunk, int stride) {
+    int n, int k, int nf, float delta, int row_offset, int stride) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -88,8 +94,8 @@ __global__ void __launch_bounds__(kWarps * 32) ell_propagate_kernel(
   float nbr_term = 0.0f;
   float wsum = 0.0f;
   const int nrows = __popc(bits);
-  for (int c0 = 0; c0 < k; c0 += chunk) {
-    const int kc = min(chunk, k - c0);
+  for (int c0 = 0; c0 < k; c0 += kChunk) {
+    const int kc = min(kChunk, k - c0);
     // e / kc for e < 32 kc: floor(e * ceil(2^32 / kc) / 2^32) is exact here
     const unsigned long long magic = ((1ull << 32) + kc - 1) / kc;
     const int32_t* nseg = nbr + (long long)row0 * k + c0;
@@ -159,30 +165,23 @@ __global__ void __launch_bounds__(kWarps * 32) ell_propagate_kernel(
   changed[row] = fabsf(__fsub_rn(fnew, fu)) > delta ? 1 : 0;
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller has checked shapes, types, contiguity, n > 0, nf > 0, that n * k
-// and n + row_offset fit in 32 bits, and chosen `blocks` (ceil(n / (32 *
-// kWarps))), the column chunk (1 to 32), the odd row stride (> min(k,
-// chunk)) and `smem_bytes` to match.
+// caller has checked shapes, types, contiguity, n > 0, nf > 0, and that
+// n * k and n + row_offset fit in 32 bits.
 extern "C" int ell_propagate_step(
     const void* nbr, const void* wgt, const void* wl0, const void* wl1,
     const void* frontier, const void* f, void* fout, void* changed,
-    int n, int k, int nf, float delta, int row_offset, int blocks, int chunk, int stride,
-    int smem_bytes, void* stream) {
-  ell_propagate_kernel<<<blocks, kWarps * 32, smem_bytes, (cudaStream_t)stream>>>(
+    int n, int k, int nf, float delta, int row_offset, void* stream) {
+  const int rows_per_block = kWarps * 32;
+  const int blocks = (n + rows_per_block - 1) / rows_per_block;
+  const int stride = ((k < kChunk ? k : kChunk) + 1) | 1;  // odd: distinct banks a row
+  const size_t smem = (size_t)kWarps * (2 * 32 * stride + 32) * sizeof(float);
+  ell_propagate_kernel<<<blocks, rows_per_block, smem, (cudaStream_t)stream>>>(
       (const int32_t*)nbr, (const float*)wgt, (const float*)wl0,
       (const float*)wl1, (const uint8_t*)frontier, (const float*)f,
-      (float*)fout, (uint8_t*)changed, n, k, nf, delta, row_offset, chunk, stride);
-  return (int)cudaGetLastError();
-}
-
-// One launch of an empty kernel: the floor under any launch's time.
-extern "C" int empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+      (float*)fout, (uint8_t*)changed, n, k, nf, delta, row_offset, stride);
   return (int)cudaGetLastError();
 }
 

@@ -34,9 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (argtypes, restype); every pointer and the stream are
 # c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P], _I),
-    "empty_launch": ([_P], _I),
-    "argkmin": ([_P] * 11 + [_I] * 8 + [_F, _P], _I),
+    "ell_propagate_step": ([_P] * 8 + [_I, _I, _I, _F, _I, _P], _I),
+    "argkmin": ([_P] * 11 + [_I] * 7 + [_F, _P], _I),
     "argkmin_resident_blocks": ([_I, _I], _I),
     "bsr_spmv": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "cc_hook_step": ([_P] * 3 + [_I, _I, _P], _I),

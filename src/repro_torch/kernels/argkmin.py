@@ -40,7 +40,6 @@ TK_MAX = LIST_BOUNDS[-1]
 D_MAX = 128  # the kernel is built for D = 8, 16, ..., 128
 ROWS_PER_BLOCK = 128  # batch rows per block of the tile passes, one a thread
 SPLIT_TARGET = 1056  # resident blocks assumed where the card is not asked (8 per SM)
-SEED_SHARE = 0.0  # seed rows as a share of a split; 0: no seed pass (timed best)
 TILE_FLOATS = 4096  # floats of the store tile a block stages in shared memory
 _PLAIN_TILE_ELEMS = 2**26  # (M, tile) elements per plain-version temporary
 
@@ -103,20 +102,17 @@ def argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, *,
     return val, idx, disp
 
 
-def argkmin_geometry(c: int, d: int, m: int, topk: int, *, resident: int = SPLIT_TARGET,
-                     seed_share: float = SEED_SHARE) -> dict:
+def argkmin_geometry(c: int, d: int, m: int, topk: int, *, resident: int = SPLIT_TARGET
+                     ) -> dict:
     """The kernel's launch geometry for a (C, D, M, TK) call.
 
     ``tkb``: the list bound, the smallest of ``LIST_BOUNDS`` that holds
     ``topk``.  ``row_blocks``: blocks of ``ROWS_PER_BLOCK`` batch rows.
     ``tile_rows``: store rows a block stages at a time.  ``splits``: the
-    pass over the rows after the seed deals its tiles round-robin to this
-    many splits, as many as fill one wave of ``resident`` blocks (the
-    blocks the card holds at once) and no more than there are tiles.
-    ``seed_rows``: the seed pass's rows, ``seed_share`` of a split's rows
-    (at least one), or none (no seed pass, no threshold) when
-    ``seed_share`` is 0.  ``smem_bytes``: the tile kernel's static shared
-    memory."""
+    pass over the store deals its tiles round-robin to this many splits,
+    as many as fill one wave of ``resident`` blocks (the blocks the card
+    holds at once) and no more than there are tiles.  ``smem_bytes``: the
+    tile kernel's static shared memory."""
     if not 1 <= topk <= TK_MAX:
         raise ValueError(f"the argkmin kernel keeps 1 to {TK_MAX} candidates; got {topk}")
     if c < 1 or m < 1 or d % 8 or not 8 <= d <= D_MAX:
@@ -124,12 +120,9 @@ def argkmin_geometry(c: int, d: int, m: int, topk: int, *, resident: int = SPLIT
     tkb = min(b for b in LIST_BOUNDS if b >= topk)
     row_blocks = -(-m // ROWS_PER_BLOCK)
     tile_rows = (TILE_FLOATS // d) // 8 * 8
-    want = max(1, min(resident // row_blocks, -(-c // tile_rows), 65535))
-    seed_rows = min(c, max(1, int(-(-c // want) * seed_share))) if seed_share > 0 else 0
-    rest = c - seed_rows
-    splits = max(1, min(want, -(-rest // tile_rows))) if rest else 0
-    return dict(tkb=tkb, row_blocks=row_blocks, tile_rows=tile_rows, seed_rows=seed_rows,
-                splits=splits, blocks=row_blocks * splits,
+    splits = max(1, min(resident // row_blocks, -(-c // tile_rows), 65535))
+    return dict(tkb=tkb, row_blocks=row_blocks, tile_rows=tile_rows, splits=splits,
+                blocks=row_blocks * splits,
                 smem_bytes=tile_rows * d * 4 + tile_rows + 4 * 4 * tile_rows)
 
 
@@ -195,12 +188,10 @@ def argkmin_candidates(store, valid, kth, batch, batch_valid, base_id, slack, *,
     return argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, topk=topk)
 
 
-def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, topk: int,
-                   seed_share: float = SEED_SHARE):
+def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, topk: int):
     """The kernel on CUDA tensors for any ``1 <= topk <= TK_MAX``:
-    ``(val, idx, disp)`` as ``argkmin_ref`` gives them.  ``seed_share``
-    sets the seed pass's rows (``argkmin_geometry``); the result does not
-    depend on it.  Bumps ``argkmin_candidates.launches`` once a call."""
+    ``(val, idx, disp)`` as ``argkmin_ref`` gives them.  Bumps
+    ``argkmin_candidates.launches`` once a call."""
     from repro_torch.kernels._build import load_library
 
     _check(store, valid, kth, batch, batch_valid, base_id)
@@ -222,18 +213,16 @@ def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, top
     if m == 0:
         return val, idx, disp.zero_().view(torch.bool)
     tkb = min(b for b in LIST_BOUNDS if b >= topk)
-    geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(d, tkb, dev.index or 0),
-                           seed_share=seed_share)
-    lists = (geo["seed_rows"] > 0) + geo["splits"]
-    pval = torch.empty((lists, m, topk), dtype=torch.float32, device=dev)
-    pidx = torch.empty((lists, m, topk), dtype=torch.int32, device=dev)
+    geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(d, tkb, dev.index or 0))
+    pval = torch.empty((geo["splits"], m, topk), dtype=torch.float32, device=dev)
+    pidx = torch.empty((geo["splits"], m, topk), dtype=torch.int32, device=dev)
     pcol = torch.empty((geo["row_blocks"], c), dtype=torch.float32, device=dev)
     lib = load_library()
     code = lib.lib.argkmin(
         store.data_ptr(), valid.data_ptr(), kth.data_ptr(), batch.data_ptr(),
         batch_valid.data_ptr(), val.data_ptr(), idx.data_ptr(), disp.data_ptr(),
         pval.data_ptr(), pidx.data_ptr(), pcol.data_ptr(), c, d, m, topk, geo["tkb"],
-        geo["seed_rows"], geo["splits"], int(base_id), float(slack),
+        geo["splits"], int(base_id), float(slack),
         torch.cuda.current_stream(dev).cuda_stream)
     lib.check(code, "argkmin launch")
     argkmin_candidates.launches += 1

@@ -3,7 +3,7 @@
 Counterpart of the Pallas TPU kernel ``repro.kernels.ell_propagate.
 ell_propagate_step``.  The CUDA source is ``csrc/ell_propagate.cu`` (one
 warp per 32 rows, reading the frontier rows' lanes coalesced; its header
-says what bounds it on an H100); ``sweep_geometry`` chooses its launch.
+says what bounds it on an H100).
 ``ell_propagate_ref`` is the same function in plain torch ops, with the
 neighbor-axis sums in the kernel's column order, so the two give the same
 bits.  The wrapper ``ell_propagate_step`` takes the plain version for CPU
@@ -20,23 +20,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.propagate import _delta, update_island
-
-SWEEP_WARPS = 4  # warps per block of the kernel (kWarps in the .cu)
-SWEEP_CHUNK = 32  # columns of a warp's rows staged in shared memory at a time
-
-
-def sweep_geometry(n: int, k: int, *, chunk: int = SWEEP_CHUNK) -> dict:
-    """The kernel's launch for an (n, k) sweep: ``blocks`` of ``SWEEP_WARPS``
-    warps, each warp owning 32 rows; ``chunk``, the columns of the warp's
-    rows that pass through shared memory at a time (1 to 32); ``stride``,
-    the odd row stride of that tile, so a lane's reads of its own row hit
-    distinct banks; ``smem_bytes``, the tile of p = w·d and of w plus the
-    rows' F_u, for every warp of a block."""
-    if not 1 <= chunk <= 32:
-        raise ValueError(f"chunk must be 1 to 32, got {chunk}")
-    stride = (min(k, chunk) + 1) | 1
-    return dict(blocks=-(-n // (32 * SWEEP_WARPS)), chunk=chunk, stride=stride,
-                smem_bytes=SWEEP_WARPS * (2 * 32 * stride + 32) * 4)
 
 
 def ell_propagate_ref(nbr, wgt, wl0, wl1, frontier, f, delta=1e-4, row_offset=0):
@@ -92,14 +75,6 @@ def ell_propagate_step(nbr, wgt, wl0, wl1, frontier, f, delta=1e-4, row_offset=0
     _check(nbr, wgt, wl0, wl1, frontier, f, row_offset)
     if f.device.type == "cpu":
         return ell_propagate_ref(nbr, wgt, wl0, wl1, frontier, f, delta, row_offset)
-    return sweep_launch(nbr, wgt, wl0, wl1, frontier, f, delta, row_offset,
-                        sweep_geometry(*nbr.shape))
-
-
-def sweep_launch(nbr, wgt, wl0, wl1, frontier, f, delta, row_offset, geo):
-    """The kernel on CUDA tensors that ``_check`` accepts, with launch
-    geometry ``geo`` (``sweep_geometry``); the result does not depend on
-    it.  Bumps ``ell_propagate_step.launches`` once a call."""
     from repro_torch.kernels._build import load_library
 
     n, k = nbr.shape
@@ -112,8 +87,7 @@ def sweep_launch(nbr, wgt, wl0, wl1, frontier, f, delta, row_offset, geo):
     code = lib.lib.ell_propagate_step(
         nbr.data_ptr(), wgt.data_ptr(), wl0.data_ptr(), wl1.data_ptr(),
         frontier.data_ptr(), f.data_ptr(), fout.data_ptr(), changed.data_ptr(),
-        n, k, f.shape[0], float(delta), int(row_offset), geo["blocks"], geo["chunk"],
-        geo["stride"], geo["smem_bytes"], stream)
+        n, k, f.shape[0], float(delta), int(row_offset), stream)
     lib.check(code, "ell_propagate_step launch")
     ell_propagate_step.launches += 1
     return fout, changed.view(torch.bool)

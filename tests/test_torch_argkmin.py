@@ -215,32 +215,33 @@ def test_wrapper_checks_its_inputs():
 
 @pytest.mark.parametrize("c,d,m,topk,resident", [
     (131072, 16, 8192, 13, 1056),  # the main path's last call
-    (131072, 16, 8192, 13, 528),
+    (131072, 16, 8192, 13, 528),  # four blocks an SM
     (131072, 128, 8192, 13, 264),  # D = 128: fewer blocks fit
+    (131072, 16, 8192, 32, 264),  # the widest list bound
+    (100_000, 16, 5000, 13, 528),  # a batch off the block rows
     (1000, 16, 8, 13, 1056),  # C < one split of the main path
+    (256, 16, 8, 13, 1056),  # C = one tile
     (8, 8, 3, 8, 1056),  # C = TK
     (3001, 40, 100, 9, 1056),
+    (3001, 40, 100, 16, 1056),
+    (3001, 40, 100, 17, 1056),
     (5000, 128, 300, 32, 264),
+    (5000, 8, 300, 1, 264),
     (700, 8, 40_000, 1, 1056),  # more row blocks than resident blocks
+    (10**6, 64, 128, 13, 1056),  # many tiles, one row block
+    (10**6, 64, 128, 13, 1),  # one resident block
 ])
-@pytest.mark.parametrize("seed_share", [0.0, 0.25])
-def test_argkmin_geometry(c, d, m, topk, resident, seed_share):
-    """The list bound is the smallest that holds TK; the seed and the
-    interleaved splits cover the store once, every split with a tile; one
-    wave of the second pass fits in ``resident``; the tile fits the static
-    shared memory."""
-    geo = argkmin_geometry(c, d, m, topk, resident=resident, seed_share=seed_share)
+def test_argkmin_geometry(c, d, m, topk, resident):
+    """The list bound is the smallest that holds TK; the interleaved splits
+    cover the store once, every split with a tile; one wave of the pass
+    fits in ``resident``; the tile fits the static shared memory."""
+    geo = argkmin_geometry(c, d, m, topk, resident=resident)
     assert geo["tkb"] == min(b for b in LIST_BOUNDS if b >= topk)
     assert (geo["row_blocks"] - 1) * ROWS_PER_BLOCK < m <= geo["row_blocks"] * ROWS_PER_BLOCK
     assert geo["tile_rows"] % 8 == 0 and geo["tile_rows"] * d <= 4096
-    rest = c - geo["seed_rows"]
-    assert (geo["seed_rows"] == 0) == (seed_share == 0) and geo["seed_rows"] <= c
-    if rest:
-        assert 1 <= geo["splits"] <= -(-rest // geo["tile_rows"])
-        assert geo["blocks"] == geo["row_blocks"] * geo["splits"]
-        assert geo["blocks"] <= max(resident, geo["row_blocks"])
-    else:
-        assert geo["splits"] == 0 and geo["blocks"] == 0
+    assert 1 <= geo["splits"] <= -(-c // geo["tile_rows"])
+    assert geo["blocks"] == geo["row_blocks"] * geo["splits"]
+    assert geo["blocks"] <= max(resident, geo["row_blocks"])
     assert geo["smem_bytes"] <= 48 * 1024
 
 
@@ -262,59 +263,53 @@ def _lex_top(val, idx, topk):
 
 
 def _emulate(store, valid, batch, base_id, topk, geo):
-    """The kernel's list scheme in torch: the seed's lists over rows
-    [0, seed); then split s takes tiles s, s + S, ... of the rows after the
-    seed, keeping only rows that beat the seed's TK-th value strictly (they
-    lie above every seed row); the lists are merged under (value desc, row
-    asc)."""
-    c, m = store.shape[0], batch.shape[0]
+    """The kernel's list scheme in torch: split s takes tiles s, s + S, ...
+    of the store in ascending order, and a row enters its list only if it
+    beats the list's TK-th value strictly (so a tie keeps the lower row);
+    the split lists are merged under (value desc, row asc)."""
+    m = batch.shape[0]
     neg = torch.tensor(-np.inf)
     self_row = base_id + torch.arange(m)
-
-    def lists(rows, tau):
-        w = _weights(batch, store[rows])
-        ok = valid[rows][None, :] & (rows[None, :] != self_row[:, None]) & (w > tau[:, None])
-        pad = torch.full((m, topk), -np.inf)  # a list always has TK slots
-        return _lex_top(torch.cat([torch.where(ok, w, neg), pad], 1),
-                        torch.cat([rows.to(torch.int32).expand(m, -1),
-                                   torch.full((m, topk), -1, dtype=torch.int32)], 1), topk)
-
-    seed = geo["seed_rows"]
-    seed_val, seed_idx = lists(torch.arange(seed), torch.full((m,), -np.inf))
-    vals, idxs = ([seed_val], [seed_idx]) if seed else ([], [])
-    tiles = torch.arange(seed, c).split(geo["tile_rows"])
+    vals, idxs = [], []
+    tiles = torch.arange(store.shape[0]).split(geo["tile_rows"])
     for s in range(geo["splits"]):
         rows = torch.cat(tiles[s::geo["splits"]])
-        v, i = lists(rows, seed_val[:, -1])
+        w = _weights(batch, store[rows])
+        ok = valid[rows][None, :] & (rows[None, :] != self_row[:, None])
+        pad = torch.full((m, topk), -np.inf)  # a list always has TK slots
+        v, i = _lex_top(torch.cat([torch.where(ok, w, neg), pad], 1),
+                        torch.cat([rows.to(torch.int32).expand(m, -1),
+                                   torch.full((m, topk), -1, dtype=torch.int32)], 1), topk)
         vals.append(v)
         idxs.append(i)
     return _lex_top(torch.cat(vals, 1), torch.cat(idxs, 1), topk)
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "top_in_seed", "top_in_last_split",
-                                  "under_full_seed"])
-@pytest.mark.parametrize("seed_share", [0.0, 0.25, 1.0])
-def test_thresholded_splits_give_the_plain_versions_lists(case, seed_share):
-    """The kernel's scheme (seed lists, strict threshold, interleaved
-    splits, merge under (value desc, row asc)) gives ``argkmin_ref``'s
-    values and ids bit for bit, wherever the top-TK lies."""
+@pytest.mark.parametrize("case", ["random", "ties", "top_in_first_split", "top_in_last_split",
+                                  "under_full_split"])
+@pytest.mark.parametrize("resident", [2, 3, 6])
+def test_thresholded_splits_give_the_plain_versions_lists(case, resident):
+    """The kernel's scheme (interleaved splits, each list thresholded by
+    its own TK-th value, merge under (value desc, row asc)) gives
+    ``argkmin_ref``'s values and ids bit for bit, wherever the top-TK lies
+    and however many splits share the store."""
     rng = np.random.default_rng(5)
-    c, d, m, k = 1500, 8, 20, 5
+    c, d, m, k = 3000, 8, 20, 5
     embn, valid, kth, batch, bvalid, base_id = _make(rng, c, d, m, dup=case == "ties")
-    if case == "ties":  # mass ties at the seed's TK-th value across every split
+    if case == "ties":  # mass ties straddling every split boundary
         embn[::3] = embn[0]
         batch = embn[base_id:].copy()
-    elif case == "top_in_seed":
+    elif case == "top_in_first_split":
         embn[: 40] = batch[0]
     elif case == "top_in_last_split":
         embn[base_id - 40: base_id] = batch[0]
-    elif case == "under_full_seed":
-        valid[: 300] = False
+    elif case == "under_full_split":  # the first tile all dead
+        valid[: 600] = False
     topk = min(k + SELECT_MARGIN, c)
-    geo = argkmin_geometry(c, d, m, topk, resident=6, seed_share=seed_share)
+    geo = argkmin_geometry(c, d, m, topk, resident=resident)
     t = [torch.from_numpy(a) for a in (embn, valid, kth, batch, bvalid)]
     want_val, want_idx, _ = argkmin_ref(*t, base_id, selection_slack(d), topk=topk)
     got_val, got_idx = _emulate(t[0], t[1], t[3], base_id, topk, geo)
-    assert geo["splits"] >= 2
+    assert geo["splits"] == resident
     assert torch.equal(got_val.view(torch.int32), want_val.view(torch.int32))
     assert torch.equal(got_idx, want_idx)

@@ -19,8 +19,7 @@ from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_launch, argkmin_ref
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
 from repro_torch.kernels.cc_hook import cc_hook_ref, cc_hook_step, connected_components_cuda
-from repro_torch.kernels.ell_propagate import (ell_propagate_ref, ell_propagate_step,
-                                               sweep_geometry, sweep_launch)
+from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
 
 pytestmark = pytest.mark.cuda
 
@@ -71,8 +70,9 @@ def _sweep_inputs(rng, n, k, nf, frontier, pad_rows=0.0):
 @pytest.mark.parametrize("k", [1, 24, 32, 33, 64])
 @pytest.mark.parametrize("frontier", ["all", "none", "one_per_warp", "random"])
 def test_sweep_kernel_chunks_and_frontiers(card, k, frontier):
-    """The warp-cooperative sweep: one chunk (K <= 32) or several, every
-    frontier pattern, a ragged last warp, all-PAD rows; the same bits."""
+    """The warp-cooperative sweep: one column chunk (K <= 32) or several,
+    every frontier pattern, a ragged last warp, all-PAD rows; the same
+    bits."""
     n = 3000 + k
     args = [torch.from_numpy(a).to(card) for a in
             _sweep_inputs(np.random.default_rng(k), n, k, n, frontier, pad_rows=0.1)]
@@ -83,17 +83,21 @@ def test_sweep_kernel_chunks_and_frontiers(card, k, frontier):
     assert torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("chunk", [32, 16, 8, 5, 1])
-@pytest.mark.parametrize("frontier", ["all", "one_per_warp", "random"])
-def test_sweep_kernel_launch_geometries(card, chunk, frontier):
-    """Every column chunk (and with it both walks: by frontier row while a
-    warp has fewer frontier rows than the chunk's columns, else flat) gives
-    the plain version's bits."""
-    n, k = 2000, 24
-    args = [torch.from_numpy(a).to(card) for a in
-            _sweep_inputs(np.random.default_rng(chunk), n, k, n, frontier, pad_rows=0.1)]
-    geo = sweep_geometry(n, k, chunk=chunk)
-    got = sweep_launch(*args, DELTA, 0, geo)
+@pytest.mark.parametrize("k", [8, 24, 40])
+@pytest.mark.parametrize("rows_per_warp", [1, 7, 8, 9, 23, 24, 25, 32])
+def test_sweep_kernel_launch_geometries(card, k, rows_per_warp):
+    """Both walks of a chunk (by frontier row while a warp has fewer
+    frontier rows than the chunk's columns, else flat), on either side of
+    the switch and across a second, narrower chunk (K = 40: 32 + 8
+    columns), give the plain version's bits."""
+    n = 2000
+    rng = np.random.default_rng(k * 100 + rows_per_warp)
+    arrays = _sweep_inputs(rng, n, k, n, "none", pad_rows=0.1)
+    for w0 in range(0, n, 32):
+        lanes = min(32, n - w0)
+        arrays[4][w0 + rng.choice(lanes, min(rows_per_warp, lanes), replace=False)] = True
+    args = [torch.from_numpy(a).to(card) for a in arrays]
+    got = ell_propagate_step(*args, delta=DELTA)
     want = ell_propagate_ref(*args, delta=DELTA)
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
@@ -110,6 +114,24 @@ def test_sweep_kernel_row_offset_clamps(card, k, nf, row_offset):
     want = ell_propagate_ref(*args, delta=DELTA, row_offset=row_offset)
     torch.cuda.synchronize()
     assert row_offset + n > nf
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("which", ["nbr", "wgt"])
+def test_sweep_kernel_rows_off_16_bytes(card, which):
+    """An array that starts one entry past a 16-byte boundary (a view into
+    a larger buffer): the same bits."""
+    n, k = 1000, 24
+    args = [torch.from_numpy(a).to(card) for a in
+            _sweep_inputs(np.random.default_rng(5), n, k, n, "random")]
+    i = ("nbr", "wgt").index(which)
+    buf = torch.empty(n * k + 1, dtype=args[i].dtype, device=card)
+    args[i] = buf[1:].view(n, k).copy_(args[i])
+    assert args[i].data_ptr() % 16 == 4
+    got = ell_propagate_step(*args, delta=DELTA)
+    want = ell_propagate_ref(*args, delta=DELTA)
+    torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1])
 
@@ -168,43 +190,44 @@ def test_argkmin_kernel_gives_the_plain_versions_bits(card, c, d, m, count, k, d
 
 def _argkmin_case(rng, case, c=3000, d=16, m=200):
     """argkmin inputs (numpy) that put the top-TK where the thresholded
-    splits find it hardest: all in the seed, all in the last split, or mass
-    ties at the seed's TK-th value across every split boundary."""
+    splits find it hardest: all in the first split (the lowest rows), all
+    in the last split, or mass ties at the TK-th value across every split
+    boundary."""
     args, base = _argkmin_inputs(rng, c, d, m, c)
     emb, batch = args[0].numpy(), args[3].numpy()
-    if case == "top_in_seed":
+    if case == "top_in_first_split":
         emb[:64] = batch[np.arange(64) % m]
     elif case == "top_in_last_split":
         emb[base - 64:base] = batch[np.arange(64) % m]
-    elif case == "ties_at_tau":
+    elif case == "ties_at_the_kth":
         emb[: base: 3] = emb[1]
         batch[:] = emb[1]
         emb[base:] = batch
     return args, base
 
 
-@pytest.mark.parametrize("case", ["random", "top_in_seed", "top_in_last_split", "ties_at_tau"])
+@pytest.mark.parametrize("case", ["random", "top_in_first_split", "top_in_last_split",
+                                  "ties_at_the_kth"])
 @pytest.mark.parametrize("topk", [1, 8, 9, 13, 16, 17, 32])
 def test_argkmin_list_bounds_and_seed_threshold(card, case, topk):
     """Every list bound (TK on both sides of 8, 16, 32), M not a multiple of
-    the block rows, the top-TK in the seed, in the last split, or tied at
-    the threshold: values, ids and mask equal the plain version's."""
+    the block rows, the top-TK in the first split, in the last split, or
+    tied at a list's threshold (its TK-th value) across the splits: values,
+    ids and mask equal the plain version's."""
     args, base = _argkmin_case(np.random.default_rng(topk), case)
     args = [a.to(card) for a in args]
     slack = selection_slack(16)
     want = argkmin_ref(*args, base, slack, topk=topk)
-    for share in (0.0, 0.25, 1.0):
-        got = argkmin_launch(*args, base, slack, topk=topk, seed_share=share)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w), (share, g.dtype)
+    got = argkmin_launch(*args, base, slack, topk=topk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), g.dtype
 
 
 @pytest.mark.parametrize("c,d,m", [(300, 16, 8), (257, 128, 3), (1, 8, 1), (2000, 32, 300),
                                    (2000, 40, 129)])
 def test_argkmin_store_below_one_split(card, c, d, m):
-    """C below one split of the main path (the seed may be the whole store);
-    M one past a block's rows."""
+    """C below one split of the main path; M one past a block's rows."""
     args, base = _argkmin_inputs(np.random.default_rng(c), c, d, m, c)
     args = [a.to(card) for a in args]
     topk = min(13, c)

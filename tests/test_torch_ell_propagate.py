@@ -9,6 +9,7 @@ card: ``tests/test_torch_cuda.py`` holds it to the plain version's bits.
 """
 
 import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +19,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ell_propagate import ell_propagate_step as jax_step
 from repro_torch.kernels import _build
-from repro_torch.kernels.ell_propagate import (SWEEP_WARPS, ell_propagate_ref,
-                                               ell_propagate_step, sweep_geometry)
+from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
 
 torch.set_num_threads(1)
 
@@ -176,37 +176,41 @@ def test_build_inputs_are_declared():
     assert len(_build.source_hash()) == 64
 
 
-@pytest.mark.parametrize("n,k", [(1, 1), (31, 24), (107_200, 24), (4096, 32), (1000, 33),
-                                 (777, 64), (300, 0), (5, 7)])
-@pytest.mark.parametrize("chunk", [8, 16, 32])
-def test_sweep_geometry(n, k, chunk):
-    """One warp per 32 rows; an odd tile stride above the chunk width, so
+def _sweep_constant(name):
+    """An ``int`` constant of the sweep's CUDA source (its launch shape)."""
+    text = (_build.CSRC / "ell_propagate.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 24, 31, 32, 33, 64])
+def test_sweep_tile_stride_and_shared_memory(k):
+    """The launcher's tile: an odd row stride above the chunk's width, so
     lane r's reads of its row (column j at r * stride + j) hit distinct
-    banks; the tile of p and w plus F_u for every warp within 48 KB."""
-    geo = sweep_geometry(n, k, chunk=chunk)
-    assert (geo["blocks"] - 1) * 32 * SWEEP_WARPS < n <= geo["blocks"] * 32 * SWEEP_WARPS
-    kc = min(k, chunk)
-    assert geo["chunk"] == chunk and geo["stride"] % 2 == 1 and geo["stride"] > kc
-    for j in range(kc):
-        assert len({(r * geo["stride"] + j) % 32 for r in range(32)}) == 32
-    assert geo["smem_bytes"] == SWEEP_WARPS * (2 * 32 * geo["stride"] + 32) * 4 <= 48 * 1024
-
-
-def test_sweep_geometry_refuses_a_chunk_wider_than_a_warp():
-    with pytest.raises(ValueError, match="chunk"):
-        sweep_geometry(100, 24, chunk=33)
+    banks, and the tile of p and w plus F_u for every warp of a block
+    within the 48 KB a launch gets without asking."""
+    chunk, warps = _sweep_constant("kChunk"), _sweep_constant("kWarps")
+    assert chunk == 32
+    src = (_build.CSRC / "ell_propagate.cu").read_text()
+    assert "const int stride = ((k < kChunk ? k : kChunk) + 1) | 1;" in src
+    stride = (min(k, chunk) + 1) | 1
+    assert stride % 2 == 1 and stride > min(k, chunk)
+    for j in range(min(k, chunk)):
+        assert len({(r * stride + j) % 32 for r in range(32)}) == 32
+    assert warps * (2 * 32 * stride + 32) * 4 <= 48 * 1024
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 24, 31, 32, 33, 64, 65])
-@pytest.mark.parametrize("bits", [0xFFFFFFFF, 0x80000001, 0x00000080, 0x5A5A5A5A])
-@pytest.mark.parametrize("chunk", [8, 32])
-def test_sweep_walk_covers_every_frontier_lane_once(k, bits, chunk):
+@pytest.mark.parametrize("bits", [0xFFFFFFFF, 0x80000001, 0x00000080, 0x5A5A5A5A,
+                                  0x00000001, 0x0000FFFF, 0x007FFFFF, 0x00FFFFFF])
+def test_sweep_walk_covers_every_frontier_lane_once(k, bits):
     """The kernel's walk of a warp's 32 rows, per column chunk c0 of width
     kc: with fewer frontier rows than kc, item i is the i-th frontier row
     (lane = column); else item t is a flat step, lane l taking e = 32 t + l,
     row e * ceil(2^32 / kc) >> 32 and column e - row * kc.  Every frontier
     (row, column) comes exactly once, no other, and a row's columns come
-    chunk by chunk in column order."""
+    chunk by chunk in column order (23 and 24 frontier rows sit on either
+    side of the switch at K = 24)."""
+    chunk = _sweep_constant("kChunk")
     rows = [r for r in range(32) if bits >> r & 1]
     seen = []
     for c0 in range(0, k, chunk):
@@ -223,3 +227,53 @@ def test_sweep_walk_covers_every_frontier_lane_once(k, bits, chunk):
                 if bits >> r & 1:
                     seen.append((r, c0 + e - r * kc))
     assert sorted(seen) == [(r, c) for r in rows for c in range(k)]
+
+
+def _kernel_rows(nbr, wgt, wl0, wl1, frontier, f, delta, cols=32):
+    """The kernel's arithmetic in numpy float32 (each op rounded on its
+    own): p = w * d and w of a row's columns, ``cols`` at a time (the
+    kernel's chunk), folded into the running sums in column order."""
+    n, k = nbr.shape
+    f32 = np.float32
+    fu = f[:n]
+    nbr_term = np.zeros(n, f32)
+    wsum = np.zeros(n, f32)
+    for c0 in range(0, k, cols):
+        for u in range(cols):
+            if c0 + u >= k:
+                continue
+            v, w = nbr[:, c0 + u], wgt[:, c0 + u]
+            d = np.where(v >= 0, f[np.maximum(v, 0)] - fu, f32(0))
+            nbr_term = (nbr_term + w * d).astype(f32)
+            wsum = (wsum + w).astype(f32)
+    wall = ((wsum + wl0).astype(f32) + wl1).astype(f32)
+    df = (((f32(0) - fu) * wl0).astype(f32) + ((f32(1) - fu) * wl1).astype(f32)
+          + nbr_term).astype(f32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        upd = np.where(wall > 0, df / np.maximum(wall, f32(1e-30)), f32(0)).astype(f32)
+    fnew = np.where(frontier, (fu + upd).astype(f32), fu)
+    return fnew, np.abs((fnew - fu).astype(f32)) > f32(delta)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 15, 16, 17, 24, 32, 33, 64])
+@pytest.mark.parametrize("frontier", ["all", "random"])
+@pytest.mark.parametrize("pad_rows", [0.0, 0.3])
+def test_kernel_order_gives_the_plain_versions_bits(k, frontier, pad_rows):
+    """The kernel's per-row order (column chunks folded in column order,
+    PAD lanes giving 0) is the plain version's op for op: the same bits, on
+    rows that are all PAD too, and the same ``changed`` flags."""
+    rng = np.random.default_rng(100 + k)
+    n = 257
+    nbr, wgt, wl0, wl1, fr, f = _inputs(rng, n, k)
+    pad = rng.random(n) < pad_rows
+    nbr[pad] = -1
+    wgt[pad] = 0.0
+    dead = pad & (np.arange(n) % 2 == 0)  # all-PAD rows with Wall == 0
+    wl0[dead] = 0.0
+    wl1[dead] = 0.0
+    if frontier == "all":
+        fr[:] = True
+    want_f, want_ch = ell_propagate_ref(*_torch((nbr, wgt, wl0, wl1, fr, f)), delta=1e-4)
+    got_f, got_ch = _kernel_rows(nbr, wgt, wl0, wl1, fr, f, 1e-4)
+    np.testing.assert_array_equal(got_f.view(np.int32), want_f.numpy().view(np.int32))
+    np.testing.assert_array_equal(got_ch, want_ch.numpy())

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Time the port's argkmin and frontier-sweep kernels at the main path's
-shapes on synthetic inputs, through the public wrappers only, so that the
-same script times any version of ``repro_torch`` that ``PYTHONPATH`` names
-(two versions compare within one run on one card):
+shapes, through the public wrappers only, so that the same script times
+any version of ``repro_torch`` that ``PYTHONPATH`` names (two versions
+compare within one run on one card):
 
-    PYTHONPATH=src python3 tools/torch_kernel_times.py --label change
+    PYTHONPATH=src python3 tools/torch_kernel_times.py --label change \
+        [--sweeps build/sweeps.npz]
 
-Inputs are made with numpy from fixed seeds: argkmin at (C, D, M) =
-(131072, 16, 8192) and D = 128, a store holding 103,192 rows (10% dead) and
-a batch of 5,000 real rows padded to 8,192 (``k = 5``, TK 13); the sweep at
-(N, K) = (107200, 24) with a third of the rows on the frontier.  Each call
-is timed with CUDA events, queued behind a sleep so that host time does not
-enter; the median is printed as one JSON line beside the card's name and
-power limit.  The sweep is also timed with 5% and all of the rows on the
-frontier.  Where the version has them, argkmin is also timed at TK 13 and
-32 and several seed shares, the sweep at narrower column chunks (each
-checked against the plain version's bits), and an empty kernel launch
-beside the sweep.
+Synthetic inputs are made with numpy from fixed seeds: argkmin at
+(C, D, M) = (131072, 16, 8192) and D = 128, a store holding 103,192 rows
+(10% dead) and a batch of 5,000 real rows padded to 8,192 (``k = 5``,
+TK 13); the sweep at (N, K) = (107200, 24) with a third, 5% and all of the
+rows on the frontier.  ``--sweeps`` adds the main path's own sweeps, as
+``chip_smoke.py --save-sweeps`` wrote them: each checked against the plain
+version's bits, then timed twice, and the means printed.  Each call is
+timed with CUDA events behind a checked sleep (``tools/gpu_timing.py``);
+medians and means are printed as one JSON line beside the card's name and
+power limit, with an empty launch (PyTorch's spin kernel asked for 0
+cycles) timed the same way.
 """
 
 from __future__ import annotations
@@ -29,30 +30,10 @@ import subprocess
 import numpy as np
 import torch
 
+from gpu_timing import gpu_times
 from repro_torch.graph.knn import normalize_rows, selection_slack
-from repro_torch.kernels import argkmin as argkmin_module
-from repro_torch.kernels import ell_propagate as sweep_module
-from repro_torch.kernels._build import load_library
 from repro_torch.kernels.argkmin import argkmin_candidates
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
-
-
-def device_ms(fn, reps):
-    """Median device time (ms) of ``fn``: events around each call, all
-    queued behind one sleep long enough to cover the host's queueing."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at 1.7 GHz
-    pairs = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def argkmin_args(d, seed=0, c=131072, m=8192, count=103192, real=5000):
@@ -81,46 +62,52 @@ def sweep_args(n=107_200, k=24, frontier=1 / 3, seed=1):
              rng.uniform(0, 1, n).astype(np.float32))]
 
 
+def saved_sweeps(path):
+    """The main path's sweeps as ``chip_smoke.py --save-sweeps`` wrote them:
+    (argument lists, delta)."""
+    z = np.load(path)
+    shared = [torch.from_numpy(z[name]).cuda() for name in ("nbr", "wgt", "wl0", "wl1")]
+    frontier = torch.from_numpy(z["frontier"]).cuda()
+    f = torch.from_numpy(z["f"]).cuda()
+    return [shared + [frontier[i], f[i]] for i in range(frontier.shape[0])], float(z["delta"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
+    ap.add_argument("--sweeps", metavar="NPZ", help="chip_smoke.py --save-sweeps output")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_times: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    lib = load_library()
     out = {"label": args.label, "card": card}
-    launch = getattr(argkmin_module, "argkmin_launch", None)
     for d in (16, 128):
         a, base = argkmin_args(d)
         slack = selection_slack(d)
-        out[f"argkmin_d{d}_ms"] = device_ms(
-            lambda: argkmin_candidates(*a, base, slack, k=5), 10)
-        for topk in ((13, 32) if launch is not None else ()):
-            for share in (0.0, 0.0625, 0.25):
-                out[f"argkmin_d{d}_tk{topk}_seed{share}_ms"] = device_ms(
-                    lambda: launch(*a, base, slack, topk=topk, seed_share=share), 10)
-    launch = getattr(sweep_module, "sweep_launch", None)
+        out[f"argkmin_d{d}_ms"] = statistics.median(gpu_times(
+            [lambda: argkmin_candidates(*a, base, slack, k=5)] * 10, per_sleep=10))
     for share in (1 / 3, 0.05, 1.0):
         s = sweep_args(frontier=share)
         out[f"sweep_rows_{share:.2f}"] = int(s[4].sum())
-        out[f"sweep_us_{share:.2f}"] = 1e3 * device_ms(
-            lambda: ell_propagate_step(*s, delta=1e-4), 200)
-        if launch is None:
-            continue
-        want = ell_propagate_ref(*s, delta=1e-4)[0].view(torch.int32)
-        for chunk in (16, 8):
-            geo = sweep_module.sweep_geometry(*s[0].shape, chunk=chunk)
-            got = launch(*s, 1e-4, 0, geo)[0].view(torch.int32)
-            if not torch.equal(got, want):
-                raise SystemExit(f"sweep {geo}: wrong bits")
-            out[f"sweep_us_{share:.2f}_chunk{chunk}"] = 1e3 * device_ms(
-                lambda: launch(*s, 1e-4, 0, geo), 200)
-    if hasattr(lib.lib, "empty_launch"):
-        stream = torch.cuda.current_stream().cuda_stream
-        out["empty_launch_us"] = 1e3 * device_ms(lambda: lib.lib.empty_launch(stream), 200)
+        out[f"sweep_us_{share:.2f}"] = 1e3 * statistics.median(gpu_times(
+            [lambda: ell_propagate_step(*s, delta=1e-4)] * 200, per_sleep=100))
+    if args.sweeps:
+        sweeps, delta = saved_sweeps(args.sweeps)
+        for a in sweeps:
+            got, want = ell_propagate_step(*a, delta=delta), ell_propagate_ref(*a, delta=delta)
+            if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1])):
+                raise SystemExit("a main-path sweep: kernel != plain version")
+        out["main_sweeps"] = len(sweeps)
+        out["main_rows_mean"] = float(np.mean([int(a[4].sum()) for a in sweeps]))
+        for rep in (1, 2):
+            out[f"main_us_mean_{rep}"] = 1e3 * float(np.mean(gpu_times(
+                [lambda a=a: ell_propagate_step(*a, delta=delta) for a in sweeps],
+                per_sleep=100)))
+    out["empty_launch_us"] = 1e3 * statistics.median(
+        gpu_times([lambda: torch.cuda._sleep(0)] * 200, per_sleep=100))
     print(json.dumps(out))
     return 0
 
