@@ -10,7 +10,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
    started together) with each kernel's registers, stack frame and spills
    from ptxas; the argkmin tile kernel at TK <= 16 must keep its lists in
-   registers (no stack frame, no spill) at D = 16 and D = 128.
+   registers (no stack frame, no spill) at D = 16 and D = 128, and both
+   Shiloach–Vishkin kernels (step and fixpoint) must have none either.
 2. Kernels against their plain PyTorch versions on the card: the frontier
    sweep ``ell_propagate_step``, the argkmin kernel, the BSR SpMV
    ``bsr_spmv`` and the Shiloach–Vishkin step ``cc_hook_step``, on edge
@@ -21,8 +22,13 @@ Phases (each prints its lines and its seconds; any failed check raises):
    that do not start on 16 bytes; argkmin's every list bound (TK = 1, 8,
    9, 13, 16, 17, 32) with the top-TK in the first split, in the last
    split or tied at the threshold, C below one split and M off the block
-   rows.  Components and the supernode init agree with the
-   CPU; small streams
+   rows; the hook step's K = 0, 1, 3, 4, 24, 33, 36, N below and off 32,
+   all-PAD rows and ``nbr`` views off 16 bytes, where the whole fixpoint
+   ``connected_components_cuda`` must also equal the host loop of the
+   plain step (labels and step count, one launch), as on a path of 300
+   vertices, a graph with no edges and with ``max_iters`` = 1 and 2, and
+   at N = 1,000,000, where no warp keeps its lanes in shared memory.
+   Components and the supernode init agree with the CPU; small streams
    through ``DynLP`` (default backend, and ``backend="bsr"``) on the card
    agree with the CPU within 20·δ.
 3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
@@ -48,9 +54,12 @@ Phases (each prints its lines and its seconds; any failed check raises):
    agree within 2e-3 (the reference's bound between ``bsr`` and ``ref``).
    Per batch it prints submit, host update, reorder + layout and solve
    times, the slot budget and the tile fill.
-6. The ``cc`` entry point: ``connected_components_cuda`` on path 3's last
-   snapshot must equal ``connected_components`` on the card and
-   ``host_components``; its kernel launches must equal its iterations.
+6. The ``cc`` entry point: one call of ``connected_components_cuda`` on
+   path 3's last snapshot must be one fixpoint launch and no step launch,
+   and its labels must equal ``connected_components`` on the card and
+   ``host_components``; then the step loop, ``cc_hook_step`` on the host (each
+   step equal to its plain version, a launch a step) must give the same
+   labels in as many steps.
 7. Timing at path 3's last batch: the SpMV on every sweep of the solve
    (each sweep's result equal to its plain version's bits) against its
    plain version, PyTorch's BSR product and its bound; the whole solve on
@@ -63,7 +72,9 @@ Phases (each prints its lines and its seconds; any failed check raises):
    launch timed the same way; argkmin at the last batch's inputs against
    its plain version and a three-call library yardstick, beside the no-FMA
    floor, and (checked bitwise first) at D = 128; ``cc_hook_step`` on
-   every step of phase 6.  Each beside its bound.
+   every step of phase 6 beside an empty launch; the whole fixpoint on the
+   card alone and as a call, beside the step loop, the plain version's
+   loop and ``connected_components``.  Each beside its bound.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -73,6 +84,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import pathlib
 import re
@@ -105,8 +117,9 @@ from repro_torch.kernels import ops as ops_module  # noqa: E402
 from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_geometry,  # noqa: E402
                                          argkmin_launch, argkmin_ref, resident_blocks)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref  # noqa: E402
-from repro_torch.kernels.cc_hook import (cc_hook_ref, cc_hook_step,  # noqa: E402
-                                         connected_components_cuda)
+from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,  # noqa: E402
+                                         connected_components_cuda,
+                                         connected_components_ref)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
@@ -139,12 +152,18 @@ def kernel_label(mangled: str) -> str:
 def report_ptxas(log):
     """Registers, stack frame and spills of every kernel (nvcc -Xptxas -v);
     the argkmin tile kernel at the main path's list bound (TKB 16) for
-    D = 16 and D = 128 must keep its lists in registers: no stack frame,
-    no spills."""
+    D = 16 and D = 128 must keep its lists in registers, and both
+    Shiloach–Vishkin kernels their cells: no stack frame, no spills."""
     rep = ptxas_report(log)
     for e in sorted(rep.values(), key=lambda e: kernel_label(e.function)):
         print(f"   ptxas {kernel_label(e.function):<34} {e.registers:3d} registers  "
               f"{e.stack_bytes:3d} B stack  {e.spill_stores:3d}/{e.spill_loads:<3d} B spilled")
+    for name in ("cc_hook_kernel", "cc_fixpoint_kernel"):
+        hits = [e for e in rep.values() if name in e.function]
+        require(len(hits) == 1, f"no ptxas report for {name}")
+        e = hits[0]
+        require(e.stack_bytes == 0 and e.spill_stores == 0 and e.spill_loads == 0,
+                f"{name}: {e.stack_bytes} B stack, {e.spill_stores}/{e.spill_loads} B spilled")
     for d in (16, 128):
         hits = [e for e in rep.values() if f"argkmin_tile_kernelILi{d}ELi16E" in e.function]
         require(len(hits) == 1, f"no ptxas report for argkmin_tile_kernel<{d},16>")
@@ -350,26 +369,56 @@ def bsr_bound(blocks, cols, x):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), nbytes
 
 
-def cc_inputs(rng, n, k, pad):
-    """A random ELL adjacency (a share ``pad`` of the lanes -1) and a
-    random parent vector, on the card."""
+def cc_inputs(rng, n, k, pad, pad_rows=0.0):
+    """A random ELL adjacency (a share ``pad`` of the lanes -1, a share
+    ``pad_rows`` of the rows all -1) and a random parent vector, on the
+    card."""
     nbr = rng.integers(0, n, size=(n, k)).astype(np.int32)
     nbr[rng.random((n, k)) < pad] = -1
+    nbr[rng.random(n) < pad_rows] = -1
     return [torch.from_numpy(nbr).cuda(),
             torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()]
 
 
-def check_cc(name, args):
-    """The hook kernel against its plain version: exactly equal."""
+def off_16_bytes(t, rows=True):
+    """The same values in a view that does not start on 16 bytes: rows of a
+    larger buffer offset by one row (``rows``), or by one entry."""
+    lead = t.shape[1] if rows else 1
+    buf = torch.empty(t.numel() + lead, dtype=t.dtype, device=t.device)
+    view = buf[lead:].view(t.shape).copy_(t)
+    require(view.data_ptr() % 16 != 0 and view.is_contiguous(), "the view is on 16 bytes")
+    return view
+
+
+def check_cc(name, args, max_iters=10_000):
+    """The hook step against its plain version, and the fixpoint against
+    the host loop of the plain version (labels and step count), with the
+    cap ``max_iters``: exactly equal.  The fixpoint must be one launch."""
     got = cc_hook_step(*args)
     want = cc_hook_ref(*args)
     torch.cuda.synchronize()
     same = torch.equal(got, want)
+    before = connected_components_cuda.launches
+    par, iters = connected_components_cuda(args[0], max_iters=max_iters)
+    launches = connected_components_cuda.launches - before
+    want_par, want_iters = connected_components_ref(args[0], max_iters=max_iters)
+    fix_same = torch.equal(par, want_par) and iters == want_iters
     n, k = args[0].shape
-    print(f"   cc_hook_step {name:<18} N={n:<7} K={k:<3} equal={same} "
-          f"moved={int((got != args[1]).sum())}")
+    print(f"   cc_hook_step {name:<24} N={n:<7} K={k:<3} equal={same} "
+          f"moved={int((got != args[1]).sum())}; fixpoint (cap {max_iters}) "
+          f"equal={fix_same} iterations={iters}/{want_iters} launches={launches}")
     require(same, f"cc_hook_step {name}: kernel != plain version")
-    return 0.0 if same else float("inf")
+    require(fix_same, f"cc fixpoint {name}: kernel != the plain version's loop")
+    require(launches == (1 if n else 0), f"cc fixpoint {name}: {launches} launches")
+    return 0.0
+
+
+def path_graph(n):
+    """The path 0 - 1 - ... - n-1 as a (n, 2) ELL adjacency on the card."""
+    nbr = np.full((n, 2), -1, np.int32)
+    nbr[1:, 0] = np.arange(n - 1)
+    nbr[:-1, 1] = np.arange(1, n)
+    return torch.from_numpy(nbr).cuda()
 
 
 def cc_bound(n, k):
@@ -378,6 +427,60 @@ def cc_bound(n, k):
     (the neighbor gathers of par are L2 hits)."""
     nbytes = n * (4 * k + 12)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def cc_fixpoint_bound(n, k):
+    """The least time (ms) for the whole fixpoint over (N, K): nbr read once
+    and the labels written once, N·(4K + 4) bytes."""
+    nbytes = n * (4 * k + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def fixpoint_plan(n, k):
+    """The fixpoint's launch over (N, K) on this card, from its C planner:
+    (blocks, row groups a warp keeps in shared memory, blocks resident)."""
+    lib, out = load_library(), (ctypes.c_int * 3)()
+    lib.check(lib.lib.cc_fixpoint_plan(n, k, ctypes.addressof(out)), "cc_fixpoint_plan")
+    return tuple(out)
+
+
+def check_cc_cases(rng):
+    """The hook step and the fixpoint against their plain versions on the
+    card (``check_cc``): the main path's width (path 3's last snapshot),
+    then K on both sides of 4 and of the 32-column chunk, N below and off
+    32, rows with every lane PAD, views off 16 bytes, a long path, no
+    edges, step caps, and rows too many to keep in shared memory."""
+    cc_errs = [check_cc(name, cc_inputs(rng, *shape, **kw)) for name, shape, kw in (
+        ("main-path width", (107_200, 24, 0.4), {}),
+        ("K=1", (1000, 1, 0.5), {}),
+        ("K=3", (1000, 3, 0.3), {}),
+        ("K=4", (1000, 4, 0.3), {}),
+        ("K=33", (2000, 33, 0.3), {}),
+        ("K=36", (1500, 36, 0.2), {}),
+        ("N < 32", (20, 24, 0.2), {}),
+        ("N=1", (1, 4, 0.0), {}),
+        ("every lane PAD", (777, 5, 1.0), {}),
+        ("all-PAD rows", (3001, 24, 0.2), dict(pad_rows=0.3)),
+        ("K=0", (300, 0, 0.0), {}),
+        ("N % 256 != 0", (4097, 8, 0.1), {}),
+    )]
+    for k, rows in ((3, True), (33, True), (24, False), (4, False)):
+        nbr, par = cc_inputs(rng, 2000 + k, k, 0.2)
+        cc_errs.append(check_cc(f"K={k} off 16 bytes", [off_16_bytes(nbr, rows), par]))
+    path = path_graph(300)  # many steps
+    no_edges = torch.full((500, 6), -1, dtype=torch.int32, device="cuda")
+    for name, nbr, cap in (("path of 300", path, 10_000), ("path, max_iters=1", path, 1),
+                           ("path, max_iters=2", path, 2), ("no edges", no_edges, 10_000)):
+        flip = torch.arange(nbr.shape[0] - 1, -1, -1, dtype=torch.int32, device="cuda")
+        cc_errs.append(check_cc(name, [nbr, flip], max_iters=cap))
+    # rows too many for a warp to keep its lanes in shared memory: every
+    # warp strides over several row groups and reads nbr from device memory
+    # at every step
+    blocks, kept, resident = fixpoint_plan(1_000_000, 24)
+    require(blocks == resident and kept == 0,
+            f"the fixpoint's plan at N=1000000: {blocks} blocks, {kept} kept, {resident} resident")
+    cc_errs.append(check_cc("N=1000000, none kept", cc_inputs(rng, 1_000_000, 24, 0.4)))
+    return cc_errs
 
 
 def phase_kernels():
@@ -463,15 +566,7 @@ def phase_kernels():
         ("BS=128", (6, 3, 128, 9), dict(empty=0.2)),
         ("bfloat16", (80, 7, 8, 80), dict(bare_rows=0.1, dtype=torch.bfloat16)),
     )]
-    # the hook step: the main path's width (path 3's last snapshot), then
-    # the edge cases
-    cc_errs = [check_cc(name, cc_inputs(rng, *shape)) for name, shape in (
-        ("main-path width", (107_200, 24, 0.4)),
-        ("K=1", (1000, 1, 0.5)),
-        ("every lane PAD", (777, 5, 1.0)),
-        ("K=0", (300, 0, 0.0)),
-        ("N % 256 != 0", (4097, 8, 0.1)),
-    )]
+    cc_errs = check_cc_cases(rng)
 
     # components: exact integers, so the card must match the CPU exactly
     n = 20_000
@@ -935,29 +1030,69 @@ def _wall_ms(fn, reps=3):
 
 
 def phase_cc(nbr_host):
-    """The ``cc`` entry point on a snapshot's ELL adjacency: the labels must
-    equal ``connected_components`` on the card and ``host_components``,
-    and the kernel must be launched once per iteration."""
+    """The ``cc`` entry point on a snapshot's ELL adjacency: one call of
+    ``connected_components_cuda`` must be one fixpoint launch and no step
+    launch, and its labels must equal ``connected_components`` on the card
+    and ``host_components``.  Then the step loop (``cc_hook_step``
+    and a sync per step, each step equal to its plain version), counted
+    on its own: the same labels and as many steps as the fixpoint ran."""
     nbr = torch.from_numpy(nbr_host).cuda()
+    connected_components_cuda.launches = 0
     cc_hook_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     par, iters = connected_components_cuda(nbr)
-    torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    launches = cc_hook_step.launches
+    launches, step_launches = connected_components_cuda.launches, cc_hook_step.launches
     want = connected_components(nbr).labels
     host = host_components(nbr_host)
     n_comp = int((par == torch.arange(len(par), device=par.device, dtype=par.dtype)).sum())
     print(f"   connected_components_cuda on (N, K)={tuple(nbr.shape)}: {iters} iterations, "
-          f"{launches} kernel launches, {wall:.1f} ms; {n_comp} components")
+          f"{launches} fixpoint launch, {step_launches} step launches, {wall:.2f} ms wall "
+          f"(the first call); {n_comp} components")
+    require(launches == 1 and step_launches == 0,
+            "connected_components_cuda: not one fixpoint launch and no step launch")
     require(torch.equal(par, want.to(par.dtype)), "connected_components_cuda != "
             "connected_components on the card")
     require(np.array_equal(par.cpu().numpy(), host), "connected_components_cuda != "
             "host_components")
-    require(launches == iters > 0, "cc_hook_step launches != iterations")
-    print("   labels == connected_components (card) == host_components")
-    return dict(nbr=nbr, par=par, launches=launches, iterations=iters)
+
+    # the step loop, from which the step's timing takes every step's input
+    cc_hook_step.launches = 0
+    steps, loop_par = step_loop(nbr, keep=True)
+    loop_launches = cc_hook_step.launches
+    require(loop_launches == len(steps) == iters > 0,
+            f"step loop: {loop_launches} launches, {len(steps)} steps, fixpoint {iters}")
+    require(torch.equal(loop_par, par), "the step loop's labels != the fixpoint's")
+    print(f"   labels == connected_components (card) == host_components == the step loop's "
+          f"({loop_launches} step launches, each step == plain version)")
+    return dict(nbr=nbr, par=par, launches=launches, iterations=iters, steps=steps,
+                step_launches=loop_launches)
+
+
+def step_loop(nbr, keep=False):
+    """The step loop, the fixpoint one launch a step: ``cc_hook_step`` until no
+    parent moves, one host sync per step.  With ``keep``, every step's
+    inputs are kept and its result held to its plain version's."""
+    steps = []
+
+    def checked(nbr, par):
+        new = cc_hook_step(nbr, par)
+        steps.append((nbr, par))
+        require(torch.equal(new, cc_hook_ref(nbr, par)),
+                "a main-path hook step: kernel != plain version")
+        return new
+    par, _ = connected_components_ref(nbr, step=checked if keep else cc_hook_step)
+    return steps, par
+
+
+def synced_times(fn, reps):
+    """Times (ms) of ``fn``, a call that waits on the card itself: CUDA
+    events around each call, after a warm-up call."""
+    fn()
+    pairs = enqueue([fn] * reps)
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
 
 
 def phase_bsr_timing(out):
@@ -1090,35 +1225,49 @@ def phase_bsr_timing(out):
 
 
 def phase_cc_timing(cc):
-    """``cc_hook_step`` on every step of the ``cc`` entry point's run (the
-    same loop, each step's parents kept), each step's result equal to its
-    plain version's, timed beside the bound."""
-    nbr = cc["nbr"]
-    par = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
-    steps = []
-    while True:
-        steps.append((nbr, par))
-        new = cc_hook_step(nbr, par)
-        require(torch.equal(new, cc_hook_ref(nbr, par)),
-                "a main-path hook step: kernel != plain version")
-        moved = bool((new != par).any())
-        par = new
-        if not moved:
-            break
-    require(len(steps) == cc["iterations"] and torch.equal(par, cc["par"]),
-            "the cc run did not repeat itself")
+    """The hook step on every step of the ``cc`` entry point's run, each
+    per launch beside its bound and an empty launch; the whole fixpoint on
+    the card alone (behind a sleep) and as a call (CUDA events around it,
+    its read of the step count included) beside the step loop, the
+    plain version's loop, ``connected_components`` and the bound."""
+    nbr, steps = cc["nbr"], cc["steps"]
     k_ms = gpu_times([lambda a=a: cc_hook_step(*a) for a in steps] * 10, per_sleep=100)
     p_ms = gpu_times([lambda a=a: cc_hook_ref(*a) for a in steps], per_sleep=1)
+    empty = gpu_times([lambda: torch.cuda._sleep(0)] * 200, per_sleep=100)
     n, k = nbr.shape
     b_ms, by, nbytes = cc_bound(n, k)
     km, pm = float(np.mean(k_ms)), float(np.mean(p_ms))
     print(f"   cc_hook_step (N, K)=({n}, {k}), {len(steps)} steps, each == plain version: "
           f"kernel {km * 1e3:.2f} us  plain {pm * 1e3:.1f} us  bound {b_ms * 1e3:.2f} us "
           f"({nbytes / 1e6:.2f} MB at 3.35 TB/s, {by})  kernel/bound {km / b_ms:.2f}x  "
+          f"an empty kernel launch timed the same way {statistics.median(empty) * 1e3:.2f} us  "
           f"library: no single PyTorch call")
-    return dict(ms=km, plain_ms=pm, bound_ms=b_ms, bound_by=by, max_abs_err=0.0)
 
 
+    # the whole fixpoint: on the card alone, and as a call
+    f_ms = gpu_times([lambda: cc_fixpoint(nbr)] * 20, per_sleep=20)
+    call_ms = synced_times(lambda: connected_components_cuda(nbr), 20)
+    loop_ms = synced_times(lambda: step_loop(nbr), 20)
+    ref_ms = synced_times(lambda: connected_components_ref(nbr), 5)
+    comp_ms = synced_times(lambda: connected_components(nbr), 20)
+    fb_ms, fby, fbytes = cc_fixpoint_bound(n, k)
+    fm, cm, lm, rm, om = (statistics.median(t) for t in (f_ms, call_ms, loop_ms, ref_ms,
+                                                          comp_ms))
+    blocks, kept, resident = fixpoint_plan(n, k)
+    print(f"   cc fixpoint (N, K)=({n}, {k}), {cc['iterations']} steps, {blocks} blocks "
+          f"of 256 threads ({resident} resident; {-(-n // 32)} row groups, "
+          f"{kept} kept in shared memory a warp): on the card "
+          f"{fm * 1e3:.2f} us ({fm / cc['iterations'] * 1e3:.2f} us a step)  the call "
+          f"(CUDA events, its read of the step count included) {cm * 1e3:.2f} us  the step "
+          f"loop (cc_hook_step + a sync a step) {lm * 1e3:.2f} us  plain version's "
+          f"loop {rm * 1e3:.1f} us  connected_components {om * 1e3:.1f} us  bound "
+          f"{fb_ms * 1e3:.2f} us ({fbytes / 1e6:.2f} MB at 3.35 TB/s, {fby})  "
+          f"kernel/bound {fm / fb_ms:.2f}x  call/step loop {cm / lm:.3f}x")
+    step = dict(ms=km, plain_ms=pm, bound_ms=b_ms, bound_by=by, max_abs_err=0.0)
+    fix = dict(ms=fm, plain_ms=rm, bound_ms=fb_ms, bound_by=fby, max_abs_err=0.0,
+               call_ms=cm, step_loop_ms=lm, components_ms=om,
+               iterations=cc["iterations"], blocks=blocks, kept_groups=kept)
+    return step, fix
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -1159,7 +1308,7 @@ def main(argv=None) -> int:
         tb, ell_last = phase_bsr_timing(out3)
         tm = phase_timing(ell_last, args.save_sweeps)
         ta = phase_argkmin_timing(out3["argkmin"])
-        tc = phase_cc_timing(cc)
+        tc, tf = phase_cc_timing(cc)
     record = {"kernels": [{
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
@@ -1186,14 +1335,27 @@ def main(argv=None) -> int:
         "name": "cc_hook_step", "route": "cuda",
         "source": "src/repro_torch/csrc/cc_hook.cu",
         "replaces": "src/repro/kernels/cc_hook.py:34",
-        "launches": cc["launches"], "max_abs_err": max(cc_err, tc["max_abs_err"]),
+        # off the main paths: its launches in the step loop on path 3's
+        # last snapshot (phase 6)
+        "launches": cc["step_launches"], "max_abs_err": max(cc_err, tc["max_abs_err"]),
         "ms": tc["ms"], "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"], "library_ms": None,
+    }, {
+        "name": "cc_fixpoint", "route": "cuda",
+        "source": "src/repro_torch/csrc/cc_hook.cu",
+        "replaces": "src/repro/kernels/cc_hook.py:60",
+        # the cc entry point on path 3's last snapshot (phase 6)
+        "launches": cc["launches"], "max_abs_err": max(cc_err, tf["max_abs_err"]),
+        "ms": tf["ms"], "plain_ms": tf["plain_ms"], "bound_ms": tf["bound_ms"],
+        "bound_by": tf["bound_by"], "library_ms": None,
+        **{key: tf[key] for key in ("call_ms", "step_loop_ms", "components_ms",
+                                    "iterations", "blocks", "kept_groups")},
     }]}
     print(f"   launches: path 1 (DynLP) {dyn_launches} sweep kernel; path 2 (engine, ell_cuda) "
           f"{out2['launches']['ell']} sweep kernel, {out2['launches']['argkmin']} argkmin; "
           f"path 3 (engine, bsr) {out3['launches']['bsr']} SpMV, "
-          f"{out3['launches']['argkmin']} argkmin; cc entry point {cc['launches']} hook")
+          f"{out3['launches']['argkmin']} argkmin; cc entry point {cc['launches']} fixpoint "
+          f"({cc['iterations']} steps), its step loop {cc['step_launches']} hook steps")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(card_line())

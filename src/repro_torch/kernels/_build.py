@@ -39,6 +39,8 @@ SIGNATURES = {
     "argkmin_resident_blocks": ([_I, _I], _I),
     "bsr_spmv": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "cc_hook_step": ([_P] * 3 + [_I, _I, _P], _I),
+    "cc_fixpoint": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "cc_fixpoint_plan": ([_I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -85,6 +87,40 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def compile_library(srcs, out) -> tuple[float, str]:
+    """Compile each of ``srcs`` in its own ``nvcc``, all started together,
+    and link the objects into the shared library ``out``.  Returns
+    (seconds, log); a failed compile or link raises with its output and
+    leaves ``out`` as it was."""
+    nvcc = find_nvcc()
+    out = pathlib.Path(out)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        jobs = []
+        for src in srcs:
+            obj = pathlib.Path(objdir) / (pathlib.Path(src).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        failed = None
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd, text)
+        if failed is None:
+            cmd = [nvcc, "-shared", "-o", str(out), *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = (proc.returncode, cmd, proc.stdout + proc.stderr)
+    if failed is not None:
+        code, cmd, text = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{text}")
+    return time.perf_counter() - t0, log
+
+
 def build() -> tuple[pathlib.Path, bool, float, str]:
     """Compile the sources unless the library on disk matches their hash.
 
@@ -99,36 +135,15 @@ def build() -> tuple[pathlib.Path, bool, float, str]:
     log_path = BUILD_DIR / (LIB_NAME + ".log")
     if path.exists() and stamp.exists() and stamp.read_text() == digest:
         return path, False, 0.0, log_path.read_text() if log_path.exists() else ""
-    nvcc = find_nvcc()
+    find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
-        jobs = []
-        for src in sources():
-            obj = pathlib.Path(objdir) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log = ""
-        failed = None
-        for cmd, _, proc in jobs:
-            out = proc.communicate()[0]
-            log += out
-            if proc.returncode != 0 and failed is None:
-                failed = (proc.returncode, cmd, out)
-        if failed is None:
-            cmd = [nvcc, "-shared", "-o", tmp, *(str(obj) for _, obj, _ in jobs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log += proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                failed = (proc.returncode, cmd, proc.stdout + proc.stderr)
-    seconds = time.perf_counter() - t0
-    if failed is not None:
+    try:
+        seconds, log = compile_library(sources(), tmp)
+    except BaseException:
         os.unlink(tmp)
-        code, cmd, out = failed
-        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+        raise
     os.replace(tmp, path)
     log_path.write_text(log)
     stamp.write_text(digest)

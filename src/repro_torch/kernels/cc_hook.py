@@ -1,5 +1,5 @@
-"""Shiloach–Vishkin hook + jump step (paper Fig. 2): CUDA kernel and plain
-version.
+"""Shiloach–Vishkin hook + jump step (paper Fig. 2) and its fixpoint: CUDA
+kernels and plain versions.
 
 Counterpart of the Pallas TPU kernel ``repro.kernels.cc_hook.cc_hook_step``
 and its loop ``connected_components_pallas``.  One step hooks each vertex
@@ -8,11 +8,12 @@ through the PREVIOUS parent vector:
 
     hooked[u] = min(par[u], min_{v ∈ N(u)} par[v]);   out[u] = par[hooked[u]]
 
-The CUDA source is ``csrc/cc_hook.cu`` (one thread per row).  Labels are
-exact integers, so the kernel and ``cc_hook_ref`` agree exactly.  The
-wrapper ``cc_hook_step`` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors.  ``connected_components_cuda`` loops
-the step to its fixpoint; ``DynLP`` and ``StreamEngine`` use
+The CUDA source is ``csrc/cc_hook.cu``: a warp-cooperative step, and the
+whole loop to its fixpoint in one cooperative launch, both on one step
+body.  Labels are exact integers, so the kernels and their plain versions
+(``cc_hook_ref``, ``connected_components_ref``) agree exactly.  Each
+wrapper takes the plain version for CPU tensors and launches its kernel
+for CUDA tensors.  ``DynLP`` and ``StreamEngine`` use
 ``core.components.connected_components`` instead, as the reference does.
 """
 
@@ -33,16 +34,34 @@ def cc_hook_ref(nbr: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
     return par[hooked.long()]
 
 
-def _check(nbr, par):
-    dev = par.device
+def connected_components_ref(nbr: torch.Tensor, max_iters: int = 10_000,
+                             step=cc_hook_ref) -> tuple[torch.Tensor, int]:
+    """Plain version of the fixpoint: ``step`` (``cc_hook_ref``, or the
+    kernel ``cc_hook_step`` for the one-launch-a-step loop) looped on the
+    host, one sync per step, until no parent moves or ``max_iters`` steps
+    ran.  Returns ``(par, iterations)`` as ``connected_components_pallas``
+    does: the last (unchanged) step is counted."""
+    par = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
+    it, changed = 0, True
+    while changed and it < max_iters:
+        new = step(nbr, par)
+        changed = bool((new != par).any())
+        par, it = new, it + 1
+    return par, it
+
+
+def _check(nbr, par=None):
+    dev = nbr.device
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"cc_hook_step: unsupported device {dev}")
+        raise ValueError(f"cc_hook: unsupported device {dev}")
     if nbr.dim() != 2:
         raise ValueError(f"nbr must be (N, K), got shape {tuple(nbr.shape)}")
     n, k = nbr.shape
     for name, t, shape in (("nbr", nbr, (n, k)), ("par", par, (n,))):
+        if t is None:
+            continue
         if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, par on {dev}")
+            raise ValueError(f"{name} on {t.device}, nbr on {dev}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if tuple(t.shape) != shape:
@@ -50,7 +69,7 @@ def _check(nbr, par):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if n * k >= 2**31:
-        raise ValueError("cc_hook_step indexes nbr with 32-bit ints")
+        raise ValueError("cc_hook indexes nbr with 32-bit ints")
 
 
 def cc_hook_step(nbr: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
@@ -81,18 +100,54 @@ def cc_hook_step(nbr: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
 cc_hook_step.launches = 0  # kernel launches since the last reset
 
 
+def cc_fixpoint(nbr: torch.Tensor,
+                max_iters: int = 10_000) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Shiloach–Vishkin loop to its fixpoint, read back nowhere: returns
+    ``(par, iterations)`` as tensors on ``nbr``'s device, ``(N,)`` int32
+    and a scalar int32, with ``connected_components_ref``'s values.
+
+    CPU tensors take ``connected_components_ref``.  CUDA tensors launch one
+    cooperative kernel on the current stream over every block the card
+    holds at once (at most what the rows need); it runs every step (each
+    on the hook step's body, a grid barrier between steps) and stops on
+    the card.  Each launch bumps ``connected_components_cuda.launches``; a
+    refused launch raises."""
+    _check(nbr)
+    n, k = nbr.shape
+    if nbr.device.type == "cpu":
+        par, it = connected_components_ref(nbr, max_iters)
+        return par, torch.tensor(it, dtype=torch.int32)
+    from repro_torch.kernels._build import load_library
+
+    max_iters = max(0, min(int(max_iters), 2**31 - 1))
+    if n == 0:  # one step over no rows moves nothing, as the reference counts it
+        par = torch.empty(0, dtype=torch.int32, device=nbr.device)
+        return par, torch.tensor(min(1, max_iters), dtype=torch.int32, device=nbr.device)
+    # one allocation: two parent buffers (the first ends holding the
+    # labels), then the last step that moved a parent and the steps run,
+    # all written by the kernel
+    buf = torch.empty(2 * n + 2, dtype=torch.int32, device=nbr.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(nbr.device).cuda_stream
+    ptr = buf.data_ptr()
+    code = lib.lib.cc_fixpoint(nbr.data_ptr(), ptr, ptr + 4 * n, ptr + 8 * n, n, k, max_iters,
+                               stream)
+    lib.check(code, "cc_fixpoint cooperative launch")
+    connected_components_cuda.launches += 1
+    return buf[:n], buf[2 * n + 1]
+
+
 def connected_components_cuda(nbr: torch.Tensor,
                               max_iters: int = 10_000) -> tuple[torch.Tensor, int]:
-    """Shiloach–Vishkin over a symmetric ELL adjacency (PAD = -1), built on
-    ``cc_hook_step``: hook + jump until no parent moves, one host sync per
-    step.  Returns ``(par, iterations)``; ``par[u]`` is the smallest vertex
-    id of ``u``'s component, and ``iterations`` counts every step, the
-    last (unchanged) one included, as ``connected_components_pallas``
-    does."""
-    par = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
-    it, changed = 0, True
-    while changed and it < max_iters:
-        new = cc_hook_step(nbr, par)
-        changed = bool((new != par).any())
-        par, it = new, it + 1
-    return par, it
+    """Shiloach–Vishkin over a symmetric ELL adjacency (PAD = -1): hook +
+    jump until no parent moves.  Returns ``(par, iterations)``; ``par[u]``
+    is the smallest vertex id of ``u``'s component, and ``iterations``
+    counts every step, the last (unchanged) one included, as
+    ``connected_components_pallas`` does.  On the card the whole loop is
+    one launch (``cc_fixpoint``) and one read of the step count."""
+    par, it = cc_fixpoint(nbr, max_iters)
+    return par, int(it)
+
+
+connected_components_cuda.launches = 0  # fixpoint kernel launches since the last reset
+

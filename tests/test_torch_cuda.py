@@ -1,11 +1,15 @@
 """The port on the card: the CUDA kernels (frontier sweep, argkmin, BSR
-SpMV, Shiloach–Vishkin hook) against their plain versions, and the main
-paths through them.  Every test here needs an NVIDIA GPU and
+SpMV, Shiloach–Vishkin step and fixpoint) against their plain versions,
+and the main paths through them.  Every test here needs an NVIDIA GPU and
 skips without one; this file imports neither jax nor the reference, so it
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import ctypes
+import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -18,7 +22,9 @@ from repro_torch.graph.dynamic import DynamicGraph
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_launch, argkmin_ref
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
-from repro_torch.kernels.cc_hook import cc_hook_ref, cc_hook_step, connected_components_cuda
+from repro_torch.kernels import _build
+from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,
+                                         connected_components_cuda, connected_components_ref)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
 
 pytestmark = pytest.mark.cuda
@@ -308,6 +314,129 @@ def test_cc_hook_kernel_gives_the_plain_versions_result(card, n, k, pad):
     labels, iters = connected_components_cuda(nbr)
     cpu_labels, cpu_iters = connected_components_cuda(nbr.cpu())
     assert torch.equal(labels.cpu(), cpu_labels) and iters == cpu_iters
+
+
+def _cc_case(card, n, k, pad, pad_rows=0.0, offset=None):
+    """Random directed lanes (a share ``pad`` -1, a share ``pad_rows`` of
+    the rows all -1) and a random parent vector on the card; with
+    ``offset`` (entries) ``nbr`` is a view that far into a larger buffer."""
+    rng = np.random.default_rng(n * 31 + k)
+    nbr = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    nbr[rng.random((n, k)) < pad] = -1
+    nbr[rng.random(n) < pad_rows] = -1
+    nbr = torch.from_numpy(nbr).to(card)
+    if offset is not None:
+        buf = torch.empty(nbr.numel() + offset, dtype=torch.int32, device=card)
+        nbr = buf[offset:].view(n, k).copy_(nbr)
+        assert nbr.data_ptr() % 16 != 0
+    return nbr, torch.from_numpy(rng.permutation(n).astype(np.int32)).to(card)
+
+
+# the phase-2 cases of chip_smoke.py: K on both sides of 4 and of the
+# 32-column chunk, N below and off 32, all-PAD rows, views off 16 bytes
+CC_CASES = [(107_200, 24, 0.4, 0.0, None), (1000, 1, 0.5, 0.0, None), (1000, 3, 0.3, 0.0, None),
+            (1000, 4, 0.3, 0.0, None), (2000, 33, 0.3, 0.0, None), (1500, 36, 0.2, 0.0, None),
+            (20, 24, 0.2, 0.0, None), (1, 4, 0.0, 0.0, None), (3001, 24, 0.2, 0.3, None),
+            (300, 0, 0.0, 0.0, None), (4097, 8, 0.1, 0.0, None), (2003, 3, 0.2, 0.0, 3),
+            (2033, 33, 0.2, 0.0, 33), (2024, 24, 0.2, 0.0, 1), (2004, 4, 0.2, 0.0, 1)]
+
+
+@pytest.mark.parametrize("n,k,pad,pad_rows,offset", CC_CASES)
+def test_cc_step_and_fixpoint_edge_cases(card, n, k, pad, pad_rows, offset):
+    """The warp-cooperative step equals ``cc_hook_ref`` exactly; the
+    fixpoint equals the host loop of ``cc_hook_ref`` (labels and step
+    count) in exactly one launch."""
+    nbr, par = _cc_case(card, n, k, pad, pad_rows, offset)
+    assert torch.equal(cc_hook_step(nbr, par), cc_hook_ref(nbr, par))
+    before, steps = connected_components_cuda.launches, cc_hook_step.launches
+    labels, iters = connected_components_cuda(nbr)
+    assert connected_components_cuda.launches == before + 1
+    assert cc_hook_step.launches == steps
+    want, want_iters = connected_components_ref(nbr)
+    assert torch.equal(labels, want) and iters == want_iters
+
+
+def _path(card, n):
+    nbr = np.full((n, 2), -1, np.int32)
+    nbr[1:, 0] = np.arange(n - 1)
+    nbr[:-1, 1] = np.arange(1, n)
+    return torch.from_numpy(nbr).to(card)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2, 3, 10_000])
+def test_cc_fixpoint_honours_max_iters(card, max_iters):
+    nbr = _path(card, 300)
+    labels, iters = connected_components_cuda(nbr, max_iters=max_iters)
+    want, want_iters = connected_components_ref(nbr, max_iters=max_iters)
+    assert torch.equal(labels, want) and iters == want_iters == min(max_iters, want_iters)
+    if max_iters == 10_000:
+        assert (labels == 0).all() and iters > 3
+
+
+def test_cc_fixpoint_without_edges_and_rows(card):
+    labels, iters = connected_components_cuda(torch.full((500, 6), -1, dtype=torch.int32,
+                                                         device=card))
+    assert torch.equal(labels, torch.arange(500, dtype=torch.int32, device=card)) and iters == 1
+    before = connected_components_cuda.launches
+    labels, iters = connected_components_cuda(torch.empty((0, 4), dtype=torch.int32,
+                                                          device=card))
+    assert labels.numel() == 0 and iters == 1 and connected_components_cuda.launches == before
+
+
+def _fixpoint_plan(n, k):
+    """The fixpoint's launch over (N, K) from its C planner: (blocks, row
+    groups a warp keeps in shared memory, blocks resident)."""
+    lib, out = _build.load_library(), (ctypes.c_int * 3)()
+    lib.check(lib.lib.cc_fixpoint_plan(n, k, ctypes.addressof(out)), "cc_fixpoint_plan")
+    return tuple(out)
+
+
+def test_cc_fixpoint_grid_limits(card):
+    """Rows too many for a warp to keep their lanes in shared memory: every
+    resident block, each warp striding over several row groups read from
+    device memory at every step, gives the plain loop's result."""
+    blocks, kept, resident = _fixpoint_plan(1_000_000, 24)
+    assert resident >= 132 and blocks == resident and kept == 0
+    nbr, _ = _cc_case(card, 1_000_000, 24, 0.4)
+    want, want_iters = connected_components_ref(nbr)
+    labels, iters = cc_fixpoint(nbr)
+    assert torch.equal(labels, want) and int(iters) == want_iters
+
+
+def test_cc_fixpoint_refused_launch_raises(card, monkeypatch):
+    """A cooperative launch the card refuses raises through ``lib.check``
+    and counts no launch; nothing falls back to the host loop."""
+    nbr, _ = _cc_case(card, 5000, 24, 0.3)
+    real = _build.load_library()
+    refusing = types.SimpleNamespace(
+        cc_fixpoint=lambda *args: 720,  # cudaErrorCooperativeLaunchTooLarge
+        repro_cuda_error_string=real.lib.repro_cuda_error_string)
+    monkeypatch.setattr(_build, "load_library", lambda: dataclasses.replace(real, lib=refusing))
+    before, steps = connected_components_cuda.launches, cc_hook_step.launches
+    with pytest.raises(RuntimeError, match="cooperative launch: CUDA error 720"):
+        connected_components_cuda(nbr)
+    assert connected_components_cuda.launches == before and cc_hook_step.launches == steps
+
+
+def test_cc_fixpoint_keeps_the_main_paths_lanes(card):
+    """At the main path's width the grid is every resident block (or what
+    the rows need), every warp keeps its rows' lanes in shared memory, and
+    the result is the plain loop's."""
+    blocks, kept, resident = _fixpoint_plan(107_200, 24)
+    assert blocks == min(resident, 419) and kept >= 1
+    nbr, _ = _cc_case(card, 107_200, 24, 0.4)
+    labels, iters = connected_components_cuda(nbr)
+    want, want_iters = connected_components_ref(nbr)
+    assert torch.equal(labels, want) and iters == want_iters
+
+
+def test_cc_fixpoint_counts_one_launch_per_call(card):
+    nbr, _ = _cc_case(card, 5000, 24, 0.3)
+    before, steps = connected_components_cuda.launches, cc_hook_step.launches
+    for i in range(3):
+        connected_components_cuda(nbr)
+        assert connected_components_cuda.launches == before + i + 1
+    assert cc_hook_step.launches == steps
 
 
 def test_bsr_stream_goes_through_the_spmv_kernel(card):

@@ -168,7 +168,7 @@ def test_build_inputs_are_declared():
         assert f'extern "C" int {name}(' in text or f'extern "C" const char* {name}(' in text
     # every pointer and the stream as c_void_p: a c_int would cut them
     for name, n_ptr in (("ell_propagate_step", 8), ("argkmin", 11), ("bsr_spmv", 4),
-                        ("cc_hook_step", 3)):
+                        ("cc_hook_step", 3), ("cc_fixpoint", 4)):
         argtypes, restype = _build.SIGNATURES[name]
         assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
         assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
