@@ -54,13 +54,33 @@ Phases (each prints its lines and its seconds; any failed check raises):
    agree within 2e-3 (the reference's bound between ``bsr`` and ``ref``).
    Per batch it prints submit, host update, reorder + layout and solve
    times, the slot budget and the tile fill.
-6. The ``cc`` entry point: one call of ``connected_components_cuda`` on
+6. Path 4, serving and persistence, on path 3's engine at its full size:
+   ``checkpoint()`` it; ``StreamEngine.restore(dir, backend=None)`` (so
+   ``ell_cuda`` with device ingest, path 3's ``bsr`` rung metadata dropped)
+   must give its graph arrays and store byte for byte, and
+   ``device_view().query`` over every id, dead and unknown ones included,
+   the host view's answers exactly.  Then ``LPService`` with its driver
+   and a checkpoint cadence over the restored engine: reader threads query
+   1,024 random ids in a closed loop while ``add_points`` (50 points a
+   call), ``remove_points`` and ``relabel`` admit ~22 windows of 250 ops
+   from the stream's next batch.  Every answer must equal the host view of
+   its own commit; reads must have been served while a solve was in
+   flight; every window must commit; argkmin launches must equal the
+   windows with insertions and sweep launches the sweeps; an async
+   checkpoint must be written.  It prints reads a second (tickets and ids,
+   overall and while a solve was in flight), read and mutation commit
+   latency p50/p99, view publication time, checkpoint and restore times.
+   ``shutdown()`` writes the final checkpoint; an engine restored from it
+   and its twin replay three windows caller-clocked to byte-identical
+   graphs, stores and answers.  Last, ``DynLabelPropagation(k=5)`` on the
+   card: ``fit``, ``partial_fit``, then ``score`` on unseen points ≥ 0.99.
+7. The ``cc`` entry point: one call of ``connected_components_cuda`` on
    path 3's last snapshot must be one fixpoint launch and no step launch,
    and its labels must equal ``connected_components`` on the card and
    ``host_components``; then the step loop, ``cc_hook_step`` on the host (each
    step equal to its plain version, a launch a step) must give the same
    labels in as many steps.
-7. Timing at path 3's last batch: the SpMV on every sweep of the solve
+8. Timing at path 3's last batch: the SpMV on every sweep of the solve
    (each sweep's result equal to its plain version's bits) against its
    plain version, PyTorch's BSR product and its bound; the whole solve on
    ``bsr`` against ``ell_cuda`` on the unpermuted problem; ``bsr`` against
@@ -72,7 +92,7 @@ Phases (each prints its lines and its seconds; any failed check raises):
    launch timed the same way; argkmin at the last batch's inputs against
    its plain version and a three-call library yardstick, beside the no-FMA
    floor, and (checked bitwise first) at D = 128; ``cc_hook_step`` on
-   every step of phase 6 beside an empty launch; the whole fixpoint on the
+   every step of phase 7 beside an empty launch; the whole fixpoint on the
    card alone and as a call, beside the step loop, the plain version's
    loop and ``connected_components``.  Each beside its bound.
 
@@ -85,12 +105,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -122,6 +145,8 @@ from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,
                                          connected_components_ref)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
 from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
+from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
+from repro_torch.serving.lp_service import LPService  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
 from tools.gpu_timing import QueueError, enqueue, gpu_times  # noqa: E402
 
@@ -266,10 +291,11 @@ def argkmin_inputs(rng, c, d, m, count, k=5, dead=0.1, dup=False, real=None, kth
     return dict(args=args, base=base, slack=selection_slack(d), k=k)
 
 
-def check_argkmin(name, inp, topk=None):
+def check_argkmin(name, inp, topk=None, show=True):
     """The kernel against its plain version: values, ids and mask bitwise.
     With ``topk`` the kernel is launched for that list width directly, else
-    through ``argkmin_candidates``."""
+    through ``argkmin_candidates``.  ``show=False`` prints nothing unless
+    they differ."""
     args, base, slack, k = inp["args"], inp["base"], inp["slack"], inp["k"]
     c, d = args[0].shape
     if topk is None:
@@ -284,8 +310,9 @@ def check_argkmin(name, inp, topk=None):
     same = [torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                         w.view(torch.int32) if w.dtype == torch.float32 else w)
             for g, w in zip(got, want)]
-    print(f"   argkmin {name:<30} C={c:<6} D={d:<3} M={args[3].shape[0]:<5} TK={topk:<2} "
-          f"bitwise val/idx/disp={same} finite={int(fin.sum())} disp={int(got[2].sum())}")
+    if show or not all(same):
+        print(f"   argkmin {name:<30} C={c:<6} D={d:<3} M={args[3].shape[0]:<5} TK={topk:<2} "
+              f"bitwise val/idx/disp={same} finite={int(fin.sum())} disp={int(got[2].sum())}")
     require(all(same) and err == 0.0, f"argkmin {name}: kernel != plain version")
     return err
 
@@ -866,9 +893,393 @@ def phase_stream(vertices, batch_size, prefix, backend=None):
     acc = accuracy((g.f[ids] >= 0.5).astype(np.int8), truth[ids])
     print(f"   accuracy vs ground truth: {acc:.4f} over {len(ids)} vertices")
     require(acc >= 0.99, f"accuracy {acc} < 0.99")
-    return dict(last=last, argkmin=last_argkmin, launches=launches, staged=staged,
+    return dict(last=last, argkmin=last_argkmin, launches=launches, staged=staged, engine=eng,
                 prefix=dict(graph={name: getattr(g, name).copy() for name in GRAPH},
                             views=views))
+
+
+# --------------------------------------------------------------------- #
+# path 4: serving and persistence on path 3's engine
+# --------------------------------------------------------------------- #
+STATE_KEYS = ("emb", "embn", "labels", "alive", "f", "knn_idx", "knn_wgt", "src", "dst", "wgt")
+STORE_KEYS = ("emb", "valid", "kth")
+
+
+def dir_bytes(path):
+    return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*") if p.is_file())
+
+
+def require_same_graph(a, b, what, keys=STATE_KEYS):
+    for name in keys:
+        require(getattr(a.graph, name).tobytes() == getattr(b.graph, name).tobytes(),
+                f"{what}: graph {name} differs")
+
+
+def require_same_state(a, b, what):
+    """Graph arrays byte for byte, and the device-ingest stores equal."""
+    require_same_graph(a, b, what)
+    sa, sb = a.ingestor.store, b.ingestor.store
+    require((sa.count, sa.capacity) == (sb.count, sb.capacity), f"{what}: store geometry")
+    for name in STORE_KEYS:
+        require(torch.equal(getattr(sa, name), getattr(sb, name)), f"{what}: store {name}")
+
+
+def probe_ids(g):
+    """Every id, the dead ones among them, and ids no view knows."""
+    n = g.num_nodes
+    return np.concatenate([np.arange(n), [-1, -5, n, n + 7, 2 ** 31, -2 ** 31 - 1, 2 ** 40]])
+
+
+def require_same_answers(a, b, what):
+    for x, y in zip(a, b):
+        require(np.asarray(x).tobytes() == np.asarray(y).tobytes(), f"{what}: answers differ")
+
+
+def pct(values):
+    a = np.asarray(values, float)
+    return f"p50 {np.percentile(a, 50):.3f} ms, p99 {np.percentile(a, 99):.3f} ms (n={len(a)})"
+
+
+def serve_batches(vertices, batch_size):
+    """The stream past path 3's last batch: the same generator, protocol
+    and seed (its first batches are path 3's)."""
+    spec = StreamSpec(total_vertices=vertices + 3 * batch_size, batch_size=batch_size,
+                      seed=42, class_sep=6.0, noise=0.9)
+    return list(gaussian_mixture_stream(spec))[vertices // batch_size:]
+
+
+def check_path4_kernels(kept_ak, kept_sweeps):
+    """argkmin and the sweep at the shapes path 4 gave them (windows of
+    ~250 points against the 131,072-row store: few row blocks, hundreds of
+    splits), each launch's inputs kept during the serve, against their
+    plain versions bitwise."""
+    c, d = kept_ak[0]["args"][0].shape
+    m = kept_ak[0]["args"][3].shape[0]
+    topk = min(kept_ak[0]["k"] + SELECT_MARGIN, c)
+    geo = argkmin_geometry(c, d, m, topk, resident=resident_blocks(
+        d, argkmin_geometry(c, d, m, topk)["tkb"], 0))
+    ak_err = max(check_argkmin(f"path-4 window {i}", inp, show=i in (0, len(kept_ak) - 1))
+                 for i, inp in enumerate(kept_ak))
+    ms = sorted({inp["args"][3].shape[0] for inp in kept_ak})
+    print(f"   argkmin on the inputs of all {len(kept_ak)} windows (M in {ms}): kernel == "
+          f"plain version bitwise; geometry at M={m}: {json.dumps(geo)}")
+    sweep_err = 0.0
+    for a, kw in kept_sweeps:
+        got_f, got_ch = ell_propagate_step(*a, **kw)
+        want_f, want_ch = ell_propagate_ref(*a, **kw)
+        require(torch.equal(got_f.view(torch.int32), want_f.view(torch.int32))
+                and torch.equal(got_ch, want_ch), "a path-4 sweep: kernel != plain version")
+        sweep_err = max(sweep_err, float((got_f - want_f).abs().max()) if got_f.numel() else 0.0)
+    rows = [int(a[4].sum()) for a, _ in kept_sweeps]
+    print(f"   all {len(kept_sweeps)} sweeps of the served windows (N up to "
+          f"{max(a[0].shape[0] for a, _ in kept_sweeps)}, frontier rows median "
+          f"{np.median(rows):.0f}): kernel == plain version bitwise")
+    return ak_err, sweep_err
+
+
+def replay_on_host_ingest(root, windows, views, r):
+    """The served windows, in their order, caller-clocked on an engine
+    restored from path 3's checkpoint with the host kNN (no argkmin, no
+    service): the graph must equal the served engine's byte for byte, F
+    aside, and every commit's labels its labels, with F within 20·δ on the
+    rows it answers for (alive, unlabeled).  F is left out of the graph's
+    bytes because under the driver a window's drain writes its solve over
+    rows that the next, already applied window relabelled (the reference
+    does the same); a seed answers its label, never F."""
+    t0 = time.perf_counter()
+    h = StreamEngine.restore(str(root / "path3"), backend=None, ingest="host")
+    require(getattr(h.ingestor, "store", None) is None, "the replay engine has a device store")
+    worst = 0.0
+    for b in windows:
+        h.submit(b)
+        require(h.drain().converged, "a replayed window did not converge")
+        hv, rv = h.committed_view(), views[h.commits]
+        require(hv.labels.tobytes() == rv.labels.tobytes()
+                and hv.alive.tobytes() == rv.alive.tobytes(),
+                f"commit {h.commits}: host-ingest replay labels/alive != the service's")
+        ids = np.flatnonzero(rv.alive & (rv.labels == UNLABELED))
+        worst = max(worst, float(np.abs(hv.f[ids] - rv.f[ids]).max(initial=0.0)))
+    h.close()
+    require(h.commits == r.commits, "the replay did not reach the service's last commit")
+    structure = tuple(k for k in STATE_KEYS if k != "f")
+    require_same_graph(h, r, "host-ingest replay", structure)
+    require(worst <= 20 * DELTA, f"host-ingest replay: max|dF| {worst} > 20·δ")
+    print(f"   the {len(windows)} windows replayed caller-clocked on an engine restored from "
+          f"path 3's checkpoint with ingest='host': graph {'/'.join(structure)} == the "
+          f"service's byte for byte, every commit's labels equal, max|dF| {worst:.2e} "
+          f"(<= 20·δ = {20 * DELTA:.0e}) ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_serve(eng3, vertices, batch_size, window_ops=250, readers=3, q=1024):
+    """Path 4: checkpoint path 3's engine, restore it as a default-backend
+    engine, serve it through ``LPService`` with its driver and reader
+    threads while about 20 windows commit, check the kernels at the shapes
+    the windows gave them and the result against a host-ingest replay, shut
+    down, restore the final checkpoint and replay beside a twin, then the
+    estimator."""
+    root = REPO / "build" / "path4"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 1. checkpoint path 3's engine after its last batch
+    t0 = time.perf_counter()
+    path = eng3.checkpoint(str(root / "path3"))
+    save_ms = (time.perf_counter() - t0) * 1e3
+
+    # 2. restore into a default-backend engine (ell_cuda, device ingest)
+    t0 = time.perf_counter()
+    r = StreamEngine.restore(str(root / "path3"), backend=None)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(r.backend is None and r._backend_modes == {} and r._slot_budgets == {},
+            "the restored engine kept path 3's bsr rung metadata")
+    require(r.commits == eng3.commits and r.ingestor.store.emb.is_cuda, "restored state")
+    require_same_state(r, eng3, "restore")
+    ids = probe_ids(r.graph)
+    require(not r.graph.alive.all(), "the probe has no dead id")
+    dv = r.device_view()
+    require_same_answers(dv.query(ids), r.committed_view().query(ids),
+                         "restored device view vs host view")
+    require_same_answers(dv.query(ids), eng3.committed_view().query(ids),
+                         "restored device view vs path 3's view")
+    print(f"   checkpoint of path 3's engine: {save_ms:.1f} ms, "
+          f"{dir_bytes(path) / 1e6:.1f} MB; restore (backend=None): {restore_ms:.1f} ms; "
+          f"graph and store equal byte for byte; device view == host view over "
+          f"{len(ids)} ids ({int((~r.graph.alive).sum())} dead)")
+
+    # 3. serve: readers in threads, mutations from this thread, the driver
+    batches = serve_batches(vertices, batch_size)
+    views, stats, submits, inflight = {r.commits: r.committed_view()}, [], [], []
+    pub, states = [], []
+    real = dict(drain=r.drain, submit=r.submit, publish=r._publish,
+                state=r.checkpoint_state)
+
+    def drain():
+        if r.in_flight:
+            inflight[-1][1] = time.perf_counter()
+        st = real["drain"]()
+        if st is not None:
+            stats.append(st)
+            views[r.commits] = r.committed_view()
+        return st
+
+    def submit(batch):
+        submits.append(batch)
+        prev = real["submit"](batch)
+        if r.in_flight:
+            inflight.append([time.perf_counter(), None])
+        return prev
+
+    def publish(view):  # host time: what drain pays; the copies run on behind it
+        t0 = time.perf_counter()
+        dv = real["publish"](view)
+        pub.append((time.perf_counter() - t0) * 1e3)
+        return dv
+
+    def state():
+        t0 = time.perf_counter()
+        st = real["state"]()
+        states.append((time.perf_counter() - t0) * 1e3)
+        return st
+
+    solves = []  # (start, ms, sweeps) of every solve, on the engine's solve thread
+
+    def solve_timed(problem, f0, frontier0, **kw):
+        t0 = time.perf_counter()
+        res = run_propagation(problem, f0, frontier0, **kw)
+        if kw.get("stream") is not None:
+            kw["stream"].synchronize()
+        solves.append((t0, (time.perf_counter() - t0) * 1e3, res.iterations))
+        return res
+
+    def per_sweep(rows):
+        return sum(ms for _, ms, _ in rows) / max(1, sum(it for _, _, it in rows))
+
+    kept_ak, kept_sweeps = [], []  # every launch's inputs during the serve
+
+    def argkmin_kept(*a, **kw):
+        out = argkmin_candidates(*a, **kw)
+        kept_ak.append(dict(args=[t.clone() for t in a[:5]], base=a[5], slack=a[6], k=kw["k"]))
+        return out
+
+    def sweep_kept(*a, **kw):  # a sweep's inputs are not written after it
+        kept_sweeps.append((a, kw))
+        return ell_propagate_step(*a, **kw)
+
+    r.drain, r.submit, r._publish, r.checkpoint_state = drain, submit, publish, state
+    ops_module.run_propagation = solve_timed
+    svc = LPService(r, window_ops=window_ops, window_ms=50.0, max_pending_ops=4 * window_ops,
+                    checkpoint_every=5, checkpoint_dir=str(root / "service"))
+    hi = r.graph.num_nodes + batch_size + 64
+    stop = threading.Event()
+    reads = [[] for _ in range(readers)]  # (latency ms, commit, digest)
+    errors = []
+
+    def reader(i):
+        rng = np.random.default_rng(1000 + i)
+        while not stop.is_set():
+            ids = rng.integers(-8, hi, q)
+            t0 = time.perf_counter()
+            try:
+                res = svc.query(ids)
+            except Exception as e:  # noqa: BLE001 — reported after the phase
+                errors.append(e)
+                return
+            reads[i].append(((time.perf_counter() - t0) * 1e3, res.commit_id,
+                             hashlib.blake2b(res.pred.tobytes() + res.confidence.tobytes(),
+                                             digest_size=16).digest()))
+
+    batch, cls = batches[0]
+    base = r.graph.num_nodes
+    tickets, relabeled = [], []
+    ell_propagate_step.launches = 0
+    argkmin_candidates.launches = 0
+    bsr_spmv.launches = 0
+    incremental_knn.argkmin_candidates = argkmin_kept
+    ops_module.ell_propagate_step = sweep_kept
+    svc.start()
+    threads = [threading.Thread(target=reader, args=(i,)) for i in range(readers)]
+    dels = np.array_split(batch.del_ids, 3)
+    chunks = range(0, len(batch.ins_emb), 50)
+    for j, lo in enumerate(chunks):
+        if j == len(chunks) // 2:  # the first half writes only, the second serves reads too
+            t_reads = time.perf_counter()
+            for th in threads:
+                th.start()
+        tickets.append(svc.add_points(batch.ins_emb[lo:lo + 50], batch.ins_labels[lo:lo + 50]))
+        if j % 33 == 32 and dels:
+            tickets.append(svc.remove_points(dels.pop()))
+        if j % 40 == 39:  # seed ten points of an earlier window with their true class
+            pick = np.arange(lo - 400, lo - 390)
+            relabeled.append(base + pick)
+            tickets.append(svc.relabel(base + pick, cls[pick]))
+    for d in dels:
+        tickets.append(svc.remove_points(d))
+    svc.sync()
+    t_done = time.perf_counter()
+    incremental_knn.argkmin_candidates = argkmin_candidates
+    ops_module.ell_propagate_step = ell_propagate_step
+    stop.set()
+    for th in threads:
+        th.join(60.0)
+    require(not any(th.is_alive() for th in threads), "a reader did not stop")
+    wall = time.perf_counter() - t_reads
+    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
+                    bsr=bsr_spmv.launches)
+    require(not errors, f"a read failed: {errors[:1]}")
+    st = svc.stats()
+    async_ckpts = st.checkpoints_written
+    svc._ckpt_mgr.wait()
+    windows = len(submits)
+    inserting = sum(len(b.ins_emb) > 0 for b in submits)
+    sweeps = sum(s.iterations for s in stats)
+    require(st.batches_admitted == st.batches_committed == len(stats) == windows > 0,
+            "an admitted window did not commit")
+    require(all(s.converged for s in stats), "a window did not converge")
+    require(all(t.committed for t in tickets), "a mutation did not commit")
+    require(launches["argkmin"] == inserting == len(kept_ak),
+            "argkmin launches != windows with insertions")
+    require(launches["ell"] == sweeps == len(kept_sweeps) > 0,
+            "sweep kernel launches != sweeps")
+    require(launches["bsr"] == 0, "the default engine launched the SpMV")
+    require(st.queries_while_inflight > 0, "no read was served while a solve was in flight")
+    require(async_ckpts >= 1, "no async checkpoint was written")
+    require(all(s.backend == "ell_cuda" for s in stats if s.backend != "none"),
+            "a window did not run on ell_cuda")
+
+    # every answer equals the host view of its own commit (never torn)
+    n_reads = 0
+    for i, rows in enumerate(reads):
+        rng = np.random.default_rng(1000 + i)
+        for _, commit, digest in rows:
+            ids_i = rng.integers(-8, hi, q)
+            p, c = views[commit].query(ids_i)
+            require(hashlib.blake2b(p.tobytes() + c.tobytes(), digest_size=16).digest()
+                    == digest, f"reader {i}: an answer differs from commit {commit}'s view")
+            n_reads += 1
+    spans = [(max(a, t_reads), b if b is not None else t_done) for a, b in inflight
+             if b is None or b > t_reads]
+    busy = sum(b - a for a, b in spans)
+    lat = [row[0] for rows in reads for row in rows]
+    mut = [t.latency_ms for t in tickets]
+    print(f"   served: {windows} windows of {window_ops} ops ({len(batch.ins_emb)} points, "
+          f"{len(batch.del_ids)} deletes, {10 * len(relabeled)} relabels; "
+          f"{inserting} with insertions), {st.batches_committed} commits, {sweeps} sweeps; "
+          f"launches: argkmin {launches['argkmin']}, sweep kernel {launches['ell']}, "
+          f"SpMV {launches['bsr']}; {st.deadline_admissions} deadline admissions")
+    print(f"   reads (second half of the windows): {n_reads} tickets of {q} ids from {readers} "
+          f"threads in a closed loop, each equal to its commit's host view; "
+          f"{st.read_batches} fused gathers")
+    print(f"   read rate: {n_reads / wall:.1f} tickets/s, {n_reads * q / wall:.0f} ids/s over "
+          f"{wall:.2f} s; while a batch was in flight ({busy:.2f} s, "
+          f"{st.queries_while_inflight} tickets): "
+          f"{st.queries_while_inflight / busy if busy else 0.0:.1f} tickets/s")
+    writes, served = ([x for x in solves if x[0] < t_reads],
+                      [x for x in solves if x[0] >= t_reads])
+    print(f"   solve time a sweep (on the solve thread, side stream synchronized): "
+          f"{per_sweep(writes):.3f} ms over {len(writes)} windows with writes only, "
+          f"{per_sweep(served):.3f} ms over {len(served)} windows with the readers too")
+    print(f"   read latency: {pct(lat)}")
+    print(f"   mutation commit latency: {pct(mut)}")
+    print(f"   window solves: median {np.median([s.wall_ms for s in stats]):.1f} ms "
+          f"submit-to-commit, iterations median {np.median([s.iterations for s in stats]):.0f}")
+    print(f"   view publication at drain (host, its copies asynchronous): {pct(pub)}")
+    print(f"   async checkpoints: {async_ckpts}, state copies under the lock {pct(states)}")
+    ak_err, sweep_err = check_path4_kernels(kept_ak, kept_sweeps)
+    del kept_ak[:], kept_sweeps[:]
+    replay_on_host_ingest(root, submits, views, r)
+
+    # 4. shutdown, restore the final checkpoint, replay beside a twin
+    t0 = time.perf_counter()
+    step = svc.shutdown()
+    shutdown_ms = (time.perf_counter() - t0) * 1e3
+    r.drain, r.submit, r._publish, r.checkpoint_state = (real["drain"], real["submit"],
+                                                         real["publish"], real["state"])
+    require(step == r.commits, "shutdown did not checkpoint the last commit")
+    final = root / "service" / f"step_{step:08d}"
+    t0 = time.perf_counter()
+    r2 = StreamEngine.restore(str(root / "service"))
+    torch.cuda.synchronize()
+    restore2_ms = (time.perf_counter() - t0) * 1e3
+    require(r2.commits == r.commits, "restored the wrong checkpoint")
+    require_same_state(r2, r, "final checkpoint")
+    replay = batches[1][0]
+    twins = [LPService(e, window_ops=10 ** 6, window_ms=1e9, max_pending_ops=10 ** 6)
+             for e in (r2, r)]
+    mark = len(solves)
+    for lo in range(0, 3 * window_ops, window_ops):
+        for s in twins:
+            s.add_points(replay.ins_emb[lo:lo + window_ops], replay.ins_labels[lo:lo + window_ops])
+            s.sync()
+    ops_module.run_propagation = run_propagation
+    replayed = solves[mark:]
+    require_same_state(r2, r, "replay")
+    ids = probe_ids(r.graph)
+    require_same_answers(r2.device_view().query(ids), r.device_view().query(ids), "replay")
+    print(f"   shutdown (drain + final checkpoint, {dir_bytes(final) / 1e6:.1f} MB): "
+          f"{shutdown_ms:.1f} ms; restore {restore2_ms:.1f} ms; 3 windows replayed "
+          f"caller-clocked on the restored engine and its twin: graphs, stores and "
+          f"{len(ids)} answers byte-identical; their solves alone (the caller waits in "
+          f"drain): {per_sweep(replayed):.3f} ms a sweep over {len(replayed)} solves")
+
+    # 5. the estimator on the card
+    spec = StreamSpec(total_vertices=5000, batch_size=1000, seed=42, class_sep=6.0, noise=0.9)
+    parts = list(gaussian_mixture_stream(spec))
+    a0, s0 = argkmin_candidates.launches, ell_propagate_step.launches
+    t0 = time.perf_counter()
+    clf = DynLabelPropagation(k=5).fit(parts[0][0].ins_emb, parts[0][0].ins_labels)
+    for b, _ in parts[1:4]:
+        clf.partial_fit(b.ins_emb, b.ins_labels)
+    acc = clf.score(parts[4][0].ins_emb, parts[4][1])
+    est_ms = (time.perf_counter() - t0) * 1e3
+    require(clf.engine_.device.type == "cuda" and clf.engine_._read_stream is not None,
+            "the estimator is not on the card")
+    require(argkmin_candidates.launches > a0 and ell_propagate_step.launches > s0,
+            "the estimator did not launch the kernels")
+    print(f"   DynLabelPropagation(k=5): fit 1000, partial_fit 3000, score on 1000 unseen: "
+          f"accuracy {acc:.4f} ({est_ms:.0f} ms)")
+    require(acc >= 0.99, f"estimator accuracy {acc} < 0.99")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, windows=windows, argkmin_err=ak_err, sweep_err=sweep_err)
 
 
 def phase_timing(last, save_sweeps=None):
@@ -1302,6 +1713,8 @@ def main(argv=None) -> int:
         out2 = phase_stream(args.vertices, args.batch, prefix)
     with Phase("path 3: StreamEngine(ingest='device', backend='bsr') over the stream"):
         out3 = phase_stream(args.stream_vertices, args.batch, out2["prefix"], backend="bsr")
+    with Phase("path 4: serving and persistence on path 3's engine"):
+        out4 = phase_serve(out3["engine"], args.stream_vertices, args.batch)
     with Phase("the cc entry point on path 3's last snapshot"):
         cc = phase_cc(out3["staged"]["host"].nbr)
     with Phase("timing at path 3's last batch"):
@@ -1313,15 +1726,16 @@ def main(argv=None) -> int:
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
         "replaces": "src/repro/kernels/ell_propagate.py:58",
-        "launches": out2["launches"]["ell"], "max_abs_err": max(sweep_err, tm["max_abs_err"]),
+        "launches": out2["launches"]["ell"], "path4_launches": out4["launches"]["ell"],
+        "max_abs_err": max(sweep_err, tm["max_abs_err"], out4["sweep_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
     }, {
         "name": "argkmin", "route": "cuda",
         "source": "src/repro_torch/csrc/argkmin.cu",
         "replaces": "src/repro/kernels/argkmin.py:117",
-        "launches": out3["launches"]["argkmin"],
-        "max_abs_err": max(argkmin_err, ta["max_abs_err"]),
+        "launches": out3["launches"]["argkmin"], "path4_launches": out4["launches"]["argkmin"],
+        "max_abs_err": max(argkmin_err, ta["max_abs_err"], out4["argkmin_err"]),
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
         "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
     }, {
@@ -1336,7 +1750,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/cc_hook.cu",
         "replaces": "src/repro/kernels/cc_hook.py:34",
         # off the main paths: its launches in the step loop on path 3's
-        # last snapshot (phase 6)
+        # last snapshot (phase 7)
         "launches": cc["step_launches"], "max_abs_err": max(cc_err, tc["max_abs_err"]),
         "ms": tc["ms"], "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"], "library_ms": None,
@@ -1344,7 +1758,7 @@ def main(argv=None) -> int:
         "name": "cc_fixpoint", "route": "cuda",
         "source": "src/repro_torch/csrc/cc_hook.cu",
         "replaces": "src/repro/kernels/cc_hook.py:60",
-        # the cc entry point on path 3's last snapshot (phase 6)
+        # the cc entry point on path 3's last snapshot (phase 7)
         "launches": cc["launches"], "max_abs_err": max(cc_err, tf["max_abs_err"]),
         "ms": tf["ms"], "plain_ms": tf["plain_ms"], "bound_ms": tf["bound_ms"],
         "bound_by": tf["bound_by"], "library_ms": None,
@@ -1354,7 +1768,9 @@ def main(argv=None) -> int:
     print(f"   launches: path 1 (DynLP) {dyn_launches} sweep kernel; path 2 (engine, ell_cuda) "
           f"{out2['launches']['ell']} sweep kernel, {out2['launches']['argkmin']} argkmin; "
           f"path 3 (engine, bsr) {out3['launches']['bsr']} SpMV, "
-          f"{out3['launches']['argkmin']} argkmin; cc entry point {cc['launches']} fixpoint "
+          f"{out3['launches']['argkmin']} argkmin; path 4 (service, ell_cuda) "
+          f"{out4['launches']['ell']} sweep kernel, {out4['launches']['argkmin']} argkmin over "
+          f"{out4['windows']} windows; cc entry point {cc['launches']} fixpoint "
           f"({cc['iterations']} steps), its step loop {cc['step_launches']} hook steps")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))

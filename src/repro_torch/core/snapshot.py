@@ -1,8 +1,12 @@
-"""Build ``PropagationProblem``s from the host ``DynamicGraph``.
+"""Build ``PropagationProblem``s from the host ``DynamicGraph``, and the
+read path over committed labels.
 
-Counterpart of the one-shot half of ``repro.core.snapshot``: the host build
+Counterpart of ``repro.core.snapshot``: the host build
 (``build_host_problem``) is a numpy copy whose arrays must match the
 reference's byte for byte; ``build_problem`` moves them to the device.
+``LabelView`` is a commit's labels on the host, ``DeviceLabelView`` the
+same labels on the device, where a read is one gather
+(``publish_device_view``, ``query_bucket``).
 
 Labeled classes are folded into the per-node supernode weights wl0/wl1; the
 ELL tensor holds only unlabeled↔unlabeled edges (paper §4 "three kinds of
@@ -97,6 +101,136 @@ class LabelView:
                               (f >= cutoff).astype(np.int8))
         conf[live] = np.where(seeded, 1.0, np.maximum(f, 1.0 - f))
         return pred, conf
+
+
+# ---------------------------------------------------------------------- #
+# Device-resident read path
+# ---------------------------------------------------------------------- #
+
+# Query-axis ladder: read batches pad their id vector up a doubling ladder,
+# as in the reference, so the staging buffers come in O(log Q_max) sizes.
+QUERY_FLOOR = 256
+
+
+def query_bucket(q: int, floor: int = QUERY_FLOOR) -> int:
+    """Round a query batch size up a doubling ladder."""
+    b = floor
+    while b < q:
+        b *= 2
+    return b
+
+
+def _device_query(f, labels, alive, ids, cutoff):
+    """Batched label lookup on the view's device: ``LabelView.query`` as
+    one gather.  ``ids`` out of ``[0, len(f))`` (the -1 padding included)
+    and dead rows answer UNLABELED at confidence 0; the node-axis padding
+    rows publish ``alive=False``, so one clamp handles both.  ``cutoff`` is
+    per element, so one gather serves tickets with different thresholds."""
+    n = f.shape[0]
+    safe = ids.clamp(0, n - 1).long()
+    known = (ids >= 0) & (ids < n) & alive[safe]
+    lab = labels[safe]
+    fv = f[safe]
+    seeded = lab != UNLABELED
+    pred = torch.where(known, torch.where(seeded, lab, (fv >= cutoff).to(torch.int8)),
+                       UNLABELED)
+    conf = torch.where(known, torch.where(seeded, torch.ones_like(fv),
+                                          torch.maximum(fv, 1.0 - fv)), 0.0)
+    return pred.to(torch.int8), conf.to(torch.float32)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host → ``device`` on the current stream: through pinned memory and
+    an asynchronous copy on a CUDA device (the caching host allocator keeps
+    the pinned block until the copy is done), a private copy on the CPU."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(a))
+    pinned = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+    pinned.numpy()[...] = a
+    return pinned.to(device, non_blocking=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLabelView:
+    """Device twin of ``LabelView``: the committed snapshot staged once per
+    commit, so a burst of reads is one gather on the device instead of host
+    indexing per call.
+
+    Arrays are padded up the ``bucket`` node ladder (f→0, labels→UNLABELED,
+    alive→False).  On a CUDA device every operation on the view (its
+    publication's copies, each query's copies and gather) runs on one
+    stream of its own, ``stream``: reads never queue behind the argkmin
+    kernel or the staging copies of the caller's stream, nor behind a solve
+    on the engine's side stream, and a view's memory is reused only in that
+    stream's order, after every read queued on it.  Immutable: a commit
+    publishes a NEW view, so readers holding this one never see a torn
+    state, and it lives as long as they hold it."""
+
+    f: torch.Tensor  # (N_pad,) float32
+    labels: torch.Tensor  # (N_pad,) int8
+    alive: torch.Tensor  # (N_pad,) bool
+    num_nodes: int  # live prefix of the padded node axis
+    commit_id: int
+    host: LabelView  # the host twin this view was published from
+    stream: torch.cuda.Stream | None = None  # None on the CPU
+
+    def query(self, node_ids, cutoff=0.5) -> tuple[np.ndarray, np.ndarray]:
+        """(pred, conf) for arbitrary global ids with ``LabelView.query``'s
+        semantics, one gather.  ``cutoff`` may be a scalar or a per-id
+        vector (fused multi-ticket reads)."""
+        ids = np.asarray(node_ids, np.int64).reshape(-1)
+        q = len(ids)
+        qp = query_bucket(max(q, 1))
+        ids_pad = np.full(qp, -1, np.int32)
+        # ids beyond int32 cannot index the view; they are unknown by
+        # construction (num_nodes < 2**31), so they take the -1 lane
+        in32 = (ids >= np.iinfo(np.int32).min) & (ids <= np.iinfo(np.int32).max)
+        ids_pad[:q][in32] = ids[in32].astype(np.int32)
+        cut_pad = np.zeros(qp, np.float32)
+        cut_pad[:q] = np.broadcast_to(
+            np.asarray(cutoff, np.float32).reshape(-1), (q,)) if q else 0.0
+        dev = self.f.device
+        with torch.cuda.stream(self.stream):  # a no-op for None (the CPU)
+            pred, conf = _device_query(self.f, self.labels, self.alive,
+                                       _to_device(ids_pad, dev), _to_device(cut_pad, dev))
+            if self.stream is None:
+                return pred[:q].numpy(), conf[:q].numpy()
+            pred_h = torch.empty(qp, dtype=torch.int8, pin_memory=True)
+            conf_h = torch.empty(qp, dtype=torch.float32, pin_memory=True)
+            pred_h.copy_(pred, non_blocking=True)
+            conf_h.copy_(conf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        done.synchronize()
+        return pred_h.numpy()[:q].copy(), conf_h.numpy()[:q].copy()
+
+
+def publish_device_view(view: LabelView, placement=None,
+                        stream: torch.cuda.Stream | None = None) -> DeviceLabelView:
+    """Stage a committed ``LabelView`` on ``placement`` (a device; ``None``
+    → ``cuda``), called at drain by ``StreamEngine``.
+
+    On a CUDA device the padded arrays go through pinned memory as
+    asynchronous copies on ``stream`` (the engine's read stream, required
+    there), so publication returns without waiting for them and the copies
+    overlap the next batch's host work; reads on the same stream are
+    ordered after them."""
+    dev = resolve_device(placement)
+    if dev.type == "cuda" and stream is None:
+        raise ValueError("publish_device_view on a CUDA device needs the stream its "
+                         "reads will run on")
+    n = view.num_nodes
+    n_pad = bucket(max(n, 1))
+    f = np.zeros(n_pad, np.float32)
+    lab = np.full(n_pad, UNLABELED, np.int8)
+    alive = np.zeros(n_pad, bool)
+    f[:n] = view.f
+    lab[:n] = view.labels
+    alive[:n] = view.alive
+    with torch.cuda.stream(stream):
+        arrays = [_to_device(a, dev) for a in (f, lab, alive)]
+    return DeviceLabelView(*arrays, num_nodes=n, commit_id=view.commit_id, host=view,
+                           stream=stream)
 
 
 @dataclasses.dataclass

@@ -39,10 +39,16 @@ rung.  A Δ_t whose slot requirement exceeds the rung's budget runs on
 ``backend_overflows``.  Solved rows fold back through the order's inverse
 at ``drain``.
 
+Reads: ``committed_view()`` is the last commit's labels on the host;
+``device_view()`` the same labels on the device (``DeviceLabelView``),
+published lazily on the first call and then at every drain, on a read
+stream of its own.  ``checkpoint`` / ``checkpoint_state`` / ``restore``
+persist the engine at a commit boundary (``core.persistence``).
+
 Not ported yet (the engine does not define them): the mesh
-(``mesh=``/``transport=`` and the mesh keys of ``transport_summary``), the
-``landmark`` staging, ``device_view`` (serving) and ``checkpoint`` /
-``checkpoint_state`` / ``restore`` (persistence).
+(``mesh=``/``transport=``, the mesh keys of ``transport_summary``, the mesh
+read replica and ``view_sharding``), the ``landmark`` staging, and in
+checkpoints the ``auto:measured`` probe cache and the landmark state.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ from repro_torch.core.components import compact_labels, component_order
 from repro_torch.core.dynlp import gprime_components
 from repro_torch.core.init_labels import supernode_init
 from repro_torch.core.propagate import PropagateResult, PropagationProblem
-from repro_torch.core.snapshot import (HostSnapshot, LabelView, bucket_k, build_host_problem,
+from repro_torch.core.snapshot import (DeviceLabelView, HostSnapshot, LabelView, bucket_k,
+                                       build_host_problem, publish_device_view,
                                        reorder_host_snapshot)
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
@@ -137,6 +144,7 @@ class StreamEngine:
         max_k: int | None | str = "auto",
         ingest: object = None,
         ingest_order: str = "arrival",
+        read_placement: object = "auto",
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -208,6 +216,18 @@ class StreamEngine:
         self.commits = 0  # batches whose results have been drained
         # query-side committed snapshot, replaced at every drain
         self._view = LabelView.from_graph(graph, commit_id=0)
+        # its device twin: published on the first ``device_view()`` call,
+        # then at every drain, on the engine's device; on a CUDA device
+        # publication and reads run on a stream of their own.  The only
+        # placement is "auto" (None alike): the reference's other values
+        # place the mesh's read replica, which the port does not have yet
+        if not (read_placement is None or (isinstance(read_placement, str)
+                                           and read_placement == "auto")):
+            raise ValueError(f"read_placement={read_placement!r}: only 'auto' (the "
+                             "engine's device) until the mesh read replica is ported")
+        self._read_stream = (torch.cuda.Stream(device=self.device)
+                             if self.device.type == "cuda" else None)
+        self._device_view: DeviceLabelView | None = None
         self._worker = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="stream-solve")
         self._closed = False
@@ -433,6 +453,10 @@ class StreamEngine:
         self.commits += 1
         self._view = LabelView(f=p.view_f, labels=p.view_labels,
                                alive=p.view_alive, commit_id=self.commits)
+        # republish only once a device reader exists: engines that never
+        # serve device reads pay nothing per commit
+        if self._device_view is not None:
+            self._device_view = self._publish(self._view)
         return StreamStats(
             iterations=iterations, converged=converged,
             num_components=p.num_components, frontier_size=p.frontier_size,
@@ -481,6 +505,22 @@ class StreamEngine:
         Before any commit it reflects the graph the engine was built on."""
         return self._view
 
+    def _publish(self, view: LabelView) -> DeviceLabelView:
+        return publish_device_view(view, self.device, self._read_stream)
+
+    def device_view(self) -> DeviceLabelView:
+        """The committed snapshot on the device: a read is one gather
+        (``DeviceLabelView.query``).  Published on the first call, then at
+        every drain.  Safe to call while another thread drains: views are
+        immutable and swap in one assignment, so a reader gets the previous
+        commit's view or the new one, never a mix (the service's reads rely
+        on this to stay off its write lock)."""
+        dv = self._device_view
+        if dv is None or dv.commit_id != self._view.commit_id:
+            dv = self._publish(self._view)
+            self._device_view = dv
+        return dv
+
     def step(self, batch: BatchUpdate) -> StreamStats:
         """Synchronous Δ_t update with ``DynLP.step`` semantics."""
         self.submit(batch)
@@ -492,6 +532,35 @@ class StreamEngine:
         later ``submit`` raises."""
         self._closed = True
         self._worker.shutdown(wait=True)
+
+    # ------------------------------------------------------------------ #
+    def checkpoint(self, directory: str, step: int | None = None) -> str:
+        """Write one atomic checkpoint of the engine's state (graph
+        buffers, embedding store, rung metadata, counters) under
+        ``directory``; ``step`` defaults to the commit counter.  Raises
+        while a batch is in flight: ``drain()`` first.  See
+        ``core.persistence``."""
+        from repro_torch.core import persistence
+
+        return persistence.save_engine(self, directory, step)
+
+    def checkpoint_state(self) -> dict:
+        """The flat checkpoint dict, host copies taken now (for
+        ``CheckpointManager.save_async``); same commit-boundary rule as
+        ``checkpoint``."""
+        from repro_torch.core import persistence
+
+        return persistence.engine_state(self)
+
+    @classmethod
+    def restore(cls, directory: str, step: int | None = None,
+                **overrides) -> "StreamEngine":
+        """Rebuild an engine from the latest (or given) checkpoint; keyword
+        overrides replace the checkpointed knobs, ``device`` included.  See
+        ``core.persistence.restore_engine``."""
+        from repro_torch.core import persistence
+
+        return persistence.restore_engine(directory, step, **overrides)
 
     def predictions(self, cutoff: float = 0.5) -> tuple[np.ndarray, np.ndarray]:
         """(global ids, binary predictions) for alive unlabeled vertices."""

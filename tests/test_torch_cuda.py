@@ -457,3 +457,127 @@ def test_bsr_stream_goes_through_the_spmv_kernel(card):
     assert eng.backend_overflows == 0
     ids = np.flatnonzero(gg.alive & (gg.labels == -1))
     assert np.abs(gg.f[ids] - gc.f[ids]).max() <= 20 * DELTA
+
+
+# --------------------------------------------------------------------- #
+# the serving and persistence slice on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("n", [1, 300, 100_000])
+def test_device_view_gather_equals_the_host_view(card, n):
+    """The committed view on the card, published on its read stream,
+    answers exactly as the host ``LabelView`` for every kind of id."""
+    from repro_torch.core.snapshot import LabelView, publish_device_view
+
+    rng = np.random.default_rng(n)
+    labels = np.where(rng.random(n) < 0.2, rng.integers(0, 2, n), -1).astype(np.int8)
+    view = LabelView(f=rng.random(n).astype(np.float32), labels=labels,
+                     alive=rng.random(n) > 0.1, commit_id=5)
+    with pytest.raises(ValueError, match="stream"):
+        publish_device_view(view, card)
+    stream = torch.cuda.Stream()
+    dv = publish_device_view(view, card, stream)
+    assert dv.f.device.type == "cuda" and dv.stream is stream
+    ids = np.concatenate([rng.integers(-5, n + 5, 5000),
+                          [2 ** 31, -2 ** 31 - 1, 2 ** 40]]).astype(np.int64)
+    for cutoff in (0.5, 0.3):
+        got, want = dv.query(ids, cutoff), view.query(ids, cutoff)
+        for a, b in zip(got, want):
+            assert a.tobytes() == b.tobytes()
+    per_id = rng.random(len(ids)).astype(np.float32)
+    pred, conf = dv.query(ids, per_id)
+    for i in range(0, len(ids), 97):
+        p, c = view.query(ids[i:i + 1], per_id[i])
+        assert (pred[i], conf[i]) == (p[0], c[0])
+    empty = dv.query(np.zeros(0, np.int64))
+    assert empty[0].shape == empty[1].shape == (0,)
+
+
+def test_lp_service_round_trip_with_the_driver(card):
+    """An ``LPService`` over a device-ingest engine on the card with its
+    driver running: readers in threads while windows commit, every answer
+    equal to the host view of its own commit, argkmin once per window with
+    insertions and the sweep kernel once per sweep."""
+    import threading
+
+    from repro_torch.serving.lp_service import LPService
+
+    spec = StreamSpec(total_vertices=3000, batch_size=300, seed=4, class_sep=6.0, noise=0.9)
+    g = DynamicGraph(16, 5)
+    eng = StreamEngine(g, delta=DELTA, ingest="device")
+    views, stats, submits = {0: eng.committed_view()}, [], []
+    real_drain, real_submit = eng.drain, eng.submit
+
+    def drain():
+        st = real_drain()
+        if st is not None:
+            stats.append(st)
+            views[eng.commits] = eng.committed_view()
+        return st
+
+    def submit(batch):
+        submits.append(len(batch.ins_emb) > 0)
+        return real_submit(batch)
+
+    eng.drain, eng.submit = drain, submit
+    svc = LPService(eng, window_ops=300, window_ms=5.0)
+    stop, results, errors = threading.Event(), [], []
+
+    def reader(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            ids = rng.integers(-10, 3100, 256)
+            try:
+                r = svc.query(ids)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+            results.append((ids, r))
+
+    a0, s0 = argkmin_candidates.launches, ell_propagate_step.launches
+    with svc:
+        threads = [threading.Thread(target=reader, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for batch, _ in gaussian_mixture_stream(spec):
+            for lo in range(0, len(batch.ins_emb), 100):
+                svc.add_points(batch.ins_emb[lo:lo + 100], batch.ins_labels[lo:lo + 100])
+            if len(batch.del_ids):
+                svc.remove_points(batch.del_ids)
+        svc.sync()
+        stop.set()
+        for th in threads:
+            th.join(60.0)
+        assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    st = svc.stats()
+    assert st.batches_admitted == st.batches_committed == len(stats) == len(submits)
+    assert argkmin_candidates.launches - a0 == sum(submits)
+    assert ell_propagate_step.launches - s0 == sum(s.iterations for s in stats) > 0
+    assert results and st.read_tickets >= len(results)
+    for ids, r in results:
+        p, c = views[r.commit_id].query(ids)
+        assert r.pred.tobytes() == p.tobytes() and r.confidence.tobytes() == c.tobytes()
+
+
+def test_checkpoint_round_trip_of_a_device_ingest_engine(card, tmp_path):
+    """Checkpoint a device-ingest engine on the card, restore it on the
+    card: graph, store and answers byte-identical, and both go on to the
+    same graph and labels."""
+    spec = StreamSpec(total_vertices=2400, batch_size=400, seed=6, class_sep=6.0, noise=0.9)
+    batches = [b for b, _ in gaussian_mixture_stream(spec)]
+    eng = StreamEngine(DynamicGraph(16, 5), delta=DELTA, ingest="device")
+    for b in batches[:3]:
+        eng.step(b)
+    eng.checkpoint(str(tmp_path))
+    r = StreamEngine.restore(str(tmp_path))
+    assert r.device.type == "cuda" and r.ingestor.store.emb.device.type == "cuda"
+    for name in ("emb", "valid", "kth"):
+        assert torch.equal(getattr(r.ingestor.store, name), getattr(eng.ingestor.store, name))
+    for b in batches[3:]:
+        eng.step(b)
+        r.step(b)
+    for name in ("f", "labels", "alive", "knn_idx", "knn_wgt", "src", "dst", "wgt"):
+        assert getattr(r.graph, name).tobytes() == getattr(eng.graph, name).tobytes(), name
+    ids = np.arange(-3, eng.graph.num_nodes + 3)
+    for a, b in zip(r.device_view().query(ids), eng.device_view().query(ids)):
+        assert a.tobytes() == b.tobytes()

@@ -19,6 +19,7 @@ from repro.ingest.embedding_store import EmbeddingStore as JaxEmbeddingStore
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 from repro_torch.graph.knn import build_knn_graph
 from repro_torch.ingest import DeviceIngestor, ingest_cache_size, ingest_ladder_bound
+from repro_torch.ingest import embedding_store
 from repro_torch.ingest.embedding_store import EmbeddingStore, cap_bucket, dim_pad
 
 torch.set_num_threads(1)
@@ -212,9 +213,12 @@ def test_ingestor_out_of_sync_raises():
         _apply(g2, rng.normal(size=(4, 6)).astype(np.float32), NONE, ing)
 
 
-def test_ingest_shapes_within_ladder_bound():
+def test_ingest_shapes_within_ladder_bound(monkeypatch):
     """One stream: the distinct update/kernel shapes stay under the a-priori
     ladder bound, which does not grow with the stream's length."""
+    # the registry is per process: start it empty, so shapes that an
+    # earlier test in this process ran at count for this stream too
+    monkeypatch.setattr(embedding_store, "_SHAPES", set())
     rng = np.random.default_rng(2)
     g = DynamicGraph(16, k=4)
     ing = DeviceIngestor(16, device="cpu", capacity_floor=8)
