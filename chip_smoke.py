@@ -30,7 +30,14 @@ Phases (each prints its lines and its seconds; any failed check raises):
    at N = 1,000,000, where no warp keeps its lanes in shared memory.
    Components and the supernode init agree with the CPU; small streams
    through ``DynLP`` (default backend, and ``backend="bsr"``) on the card
-   agree with the CPU within 20·δ.
+   agree with the CPU within 20·δ.  For the baselines and the landmark
+   backend: argkmin at the landmark assignment's geometry (C = 64 with 64
+   or 37 rows sampled, and C = 37; D = 16, M = 1,024 with 1,024 or 300
+   real rows, ``base_id = C``, k = 4, kth ``-inf``) bitwise;
+   ``propagate_full_ell`` against ``propagate_full`` (F bitwise and the
+   iteration count, launches = iterations) on a seeded problem and on a
+   kNN snapshot with padding rows; ``harmonic_solve`` on the card within
+   1e-4 of the CPU's.
 3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
    over a ``gaussian_mixture_stream`` of 5,000-vertex batches under the
    paper's 90/1/9 protocol (``--vertices``, 20,000 by default).  The sweep
@@ -95,6 +102,31 @@ Phases (each prints its lines and its seconds; any failed check raises):
    every step of phase 7 beside an empty launch; the whole fixpoint on the
    card alone and as a call, beside the step loop, the plain version's
    loop and ``connected_components``.  Each beside its bound.
+9. Path 5, the baselines: ``ITLP.step`` and exact ``STLP.step`` on the
+   card, each on its own graph, over path 1's stream.  After every batch
+   both graphs equal path 1's byte for byte; sweep-kernel launches equal
+   ITLP's iterations; ITLP's iterations exceed DynLP's over the stream
+   (Fig. 7; the batches where they do not are printed) and DynLP's
+   predictions agree with STLP's at ≥ 0.97 in every batch (Fig. 8).
+   Per batch: wall and solve ms of DynLP (path 1), ITLP and STLP, the
+   iterations, the ITLP/DynLP ratios and STLP's dense bytes.  Then on
+   path 3's last snapshot (unpermuted, as phase 8): ITLP's solve from 0.5
+   (``propagate_full_ell``, held bitwise to ``propagate_full``) against
+   that batch's DynLP solve; exact STLP on that graph must raise its
+   ``MemoryError``.
+10. Path 6, the landmark backend at 100,000 vertices: path 3's checkpoint
+   restored as ``backend="landmark"`` with ``LandmarkConfig(64, 4,
+   hot_ttl=1)`` and as ``backend=None`` (``ell_cuda``), each fed the
+   stream's next batch as 10 sub-batches of 500 points, pipelined.  The
+   latch engages; hot-set agreement with the exact engine ≥ 0.98; the
+   largest hot rung ≤ half the exact rung; argkmin launches equal the
+   assignment chunks plus the sub-batches with insertions, sweep launches
+   the sweeps; every assignment launch (the activation refresh's ~98
+   chunks and the later ones) equals its plain version bitwise on its
+   kept inputs; a checkpoint of the landmark engine restores
+   byte-identical.  It prints the activation refresh and cold-pass ms,
+   submit and solve ms per sub-batch, hot and exact rung rows and the cold
+   rows served.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -124,14 +156,20 @@ REPO = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.core import dynlp as dynlp_module  # noqa: E402
+from repro_torch.core import itlp as itlp_module  # noqa: E402
+from repro_torch.core import stlp as stlp_module  # noqa: E402
 from repro_torch.core import stream as stream_module  # noqa: E402
 from repro_torch.core.components import connected_components, host_components  # noqa: E402
 from repro_torch.core.snapshot import LabelView  # noqa: E402
 from repro_torch.core.dynlp import DynLP  # noqa: E402
+from repro_torch.core.itlp import ITLP  # noqa: E402
+from repro_torch.core.propagate import PropagationProblem, propagate_full  # noqa: E402
+from repro_torch.core.snapshot import build_problem  # noqa: E402
+from repro_torch.core.stlp import STLP, harmonic_solve  # noqa: E402
 from repro_torch.core.stream import StreamEngine  # noqa: E402
 from repro_torch.core.init_labels import supernode_init  # noqa: E402
 from repro_torch.data.synth import StreamSpec, accuracy, gaussian_mixture_stream  # noqa: E402
-from repro_torch.graph.dynamic import UNLABELED, DynamicGraph  # noqa: E402
+from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph  # noqa: E402
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
 from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E402
 from repro_torch.ingest import incremental_knn  # noqa: E402
@@ -144,7 +182,10 @@ from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,
                                          connected_components_cuda,
                                          connected_components_ref)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step  # noqa: E402
-from repro_torch.kernels.ops import run_propagation, select_backend  # noqa: E402
+from repro_torch.kernels import landmark_propagate as landmark_module  # noqa: E402
+from repro_torch.kernels.landmark_propagate import ASSIGN_CHUNK, LandmarkConfig  # noqa: E402
+from repro_torch.kernels.ops import (propagate_full_ell, run_propagation,  # noqa: E402
+                                     select_backend)
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
 from repro_torch.serving.lp_service import LPService  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
@@ -656,6 +697,7 @@ def phase_kernels():
           f"SpMV launches {bsr_spmv.launches - before} for {sweeps} sweeps")
     require(diff <= TOL, "small bsr stream: card vs CPU beyond 20*delta")
     require(bsr_spmv.launches - before == sweeps > 0, "small bsr stream: launches != sweeps")
+    argkmin_errs.append(check_slice_kernels(rng))
     return max(errs), max(argkmin_errs), max(bsr_errs), max(cc_errs)
 
 
@@ -682,7 +724,7 @@ def phase_main(vertices, batch_size):
     dynlp_module.run_propagation = recording
     truth = np.zeros(vertices, np.int8)
     sweeps = 0
-    views = []
+    views, per_batch = [], []
     ell_propagate_step.launches = 0
     try:
         for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
@@ -690,6 +732,8 @@ def phase_main(vertices, batch_size):
             st = dyn.step(batch)
             truth[base:base + len(cls)] = cls
             sweeps += st.iterations
+            per_batch.append(dict(iterations=st.iterations, wall_ms=st.wall_ms,
+                                  solve_ms=last["solve_ms"], digest=graph_digest(g)))
             shape = tuple(last["problem"].nbr.shape)
             print(f"   batch {t:2d}: {st.wall_ms:8.1f} ms (solve {last['solve_ms']:7.1f} ms)"
                   f"  iterations={st.iterations:4d} "
@@ -724,10 +768,20 @@ def phase_main(vertices, batch_size):
           f"{last['res'].iterations}/{ref.iterations} predictions_equal={same_pred}")
     require(diff <= TOL, "ell_cuda vs ref beyond 20*delta")
     require(same_pred, "ell_cuda vs ref predictions differ away from the cutoff")
-    return dict(graph={name: getattr(g, name).copy() for name in GRAPH}, views=views), launches
+    return dict(graph={name: getattr(g, name).copy() for name in GRAPH}, views=views,
+                batches=per_batch), launches
 
 
 GRAPH = ("src", "dst", "wgt", "knn_idx", "knn_wgt")
+
+
+def graph_digest(g):
+    """A digest of the graph's arrays (edges, kNN lists, alive, labels), for
+    holding another path's graph to this one batch by batch."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in GRAPH + ("alive", "labels"):
+        h.update(getattr(g, name).tobytes())
+    return h.hexdigest()
 
 
 def phase_stream(vertices, batch_size, prefix, backend=None):
@@ -1278,7 +1332,7 @@ def phase_serve(eng3, vertices, batch_size, window_ops=250, readers=3, q=1024):
     print(f"   DynLabelPropagation(k=5): fit 1000, partial_fit 3000, score on 1000 unseen: "
           f"accuracy {acc:.4f} ({est_ms:.0f} ms)")
     require(acc >= 0.99, f"estimator accuracy {acc} < 0.99")
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(root / "service", ignore_errors=True)  # path 6 restores root / "path3"
     return dict(launches=launches, windows=windows, argkmin_err=ak_err, sweep_err=sweep_err)
 
 
@@ -1679,6 +1733,359 @@ def phase_cc_timing(cc):
                call_ms=cm, step_loop_ms=lm, components_ms=om,
                iterations=cc["iterations"], blocks=blocks, kept_groups=kept)
     return step, fix
+# --------------------------------------------------------------------- #
+# the baselines and the landmark backend (phase 2's cases, paths 5 and 6)
+# --------------------------------------------------------------------- #
+def landmark_argkmin_inputs(rng, c, valid, m, d=16):
+    """The landmark assignment's argkmin call (``LandmarkState.refresh``): a
+    block of ``c`` landmark rows of which the first ``valid`` are sampled
+    (a partial sample pads with invalid rows), a chunk of ``ASSIGN_CHUNK``
+    query rows with the first ``m`` real, ``base_id = c`` (no self-match),
+    kth all ``-inf``, slack 0, k = 4 (TK = min(12, c))."""
+    lm = normalize_rows(rng.normal(size=(c, d)).astype(np.float32))
+    block = np.zeros((ASSIGN_CHUNK, d), np.float32)
+    block[:m] = normalize_rows(rng.normal(size=(m, d)).astype(np.float32))
+    args = [torch.from_numpy(lm).cuda(), (torch.arange(c) < valid).cuda(),
+            torch.full((c,), -np.inf, device="cuda"), torch.from_numpy(block).cuda(),
+            (torch.arange(ASSIGN_CHUNK) < m).cuda()]
+    return dict(args=args, base=c, slack=0.0, k=4)
+
+
+def check_slice_kernels(rng):
+    """Phase 2's cases for the baselines and the landmark backend: argkmin
+    at the landmark geometry, ``propagate_full_ell`` against
+    ``propagate_full`` (F and iterations), ``harmonic_solve`` card vs CPU."""
+    ak = [check_argkmin(f"landmark C={c} sampled={v} m={m}",
+                        landmark_argkmin_inputs(rng, c, v, m))
+          for c, v in ((64, 64), (64, 37), (37, 37)) for m in (ASSIGN_CHUNK, 300)]
+
+    n, real = 20_000, 19_000  # the last 1,000 rows pad the bucket
+    nbr, wgt, wl0, wl1, _, _ = sweep_inputs(rng, n, 24, pad_rows=0.05)
+    valid = torch.arange(n, device="cuda") < real
+    nbr[~valid] = -1
+    for t in (wgt, wl0, wl1):
+        t[~valid] = 0
+    p = PropagationProblem(nbr=nbr, wgt=wgt, wl0=wl0, wl1=wl1, valid=valid)
+    f0 = torch.full((n,), 0.5, device="cuda")
+    before = ell_propagate_step.launches
+    got = propagate_full_ell(p, f0, delta=DELTA)
+    launches = ell_propagate_step.launches - before
+    want = propagate_full(p, f0, delta=DELTA)
+    same = torch.equal(got.f.view(torch.int32), want.f.view(torch.int32))
+    print(f"   propagate_full_ell N={n} ({n - real} padding rows) K=24: {got.iterations} "
+          f"iterations, {launches} sweep launches; propagate_full {want.iterations} "
+          f"iterations; F bitwise={same}")
+    require(same and got.iterations == want.iterations == launches > 1 and got.converged,
+            "propagate_full_ell != propagate_full on the card")
+    require(torch.equal(got.f[real:], f0[real:]), "propagate_full_ell moved padding rows")
+
+    spec = StreamSpec(total_vertices=3000, batch_size=1000, seed=5, class_sep=6.0, noise=0.9)
+    g = DynamicGraph(emb_dim=spec.emb_dim, k=5)
+    for b, _ in gaussian_mixture_stream(spec):
+        g.apply_batch(b)
+    pc = build_problem(g, auto_bucket=True, device="cpu")
+    pg = pc.problem.to("cuda")
+    before = ell_propagate_step.launches
+    got = propagate_full_ell(pg, f0[:pg.num_unlabeled], delta=DELTA)
+    launches = ell_propagate_step.launches - before
+    want = propagate_full(pg, f0[:pg.num_unlabeled], delta=DELTA)
+    same = torch.equal(got.f.view(torch.int32), want.f.view(torch.int32))
+    print(f"   propagate_full_ell on a kNN snapshot (U, K)={tuple(pg.nbr.shape)} "
+          f"({int((~pg.valid).sum())} padding rows): {got.iterations} iterations, "
+          f"{launches} sweep launches; propagate_full {want.iterations}; F bitwise={same}")
+    require(same and got.iterations == want.iterations == launches > 1 and got.converged,
+            "propagate_full_ell != propagate_full on a kNN snapshot")
+    fc = harmonic_solve(pc.problem)
+    fg = harmonic_solve(pg).cpu()
+    d = float((fg - fc).abs().max())
+    print(f"   harmonic_solve U={pc.problem.num_unlabeled}: max|F card - F cpu|={d:.2e} "
+          "(bound 1e-4)")
+    require(d <= 1e-4, "harmonic_solve: card vs CPU beyond 1e-4")
+    return max(ak)
+
+
+def timed_sync(fn, sink, key):
+    """``fn`` wrapped to add its synchronized host time (ms) to ``sink[key]``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink[key] = sink.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    return run
+
+
+def phase_baselines(vertices, batch_size, prefix):
+    """Path 5: ``ITLP.step`` and exact ``STLP.step`` on the card, each on its
+    own graph, over path 1's stream.  After every batch both graphs equal
+    path 1's; the sweep kernel runs ITLP's iterations; ITLP takes more
+    iterations than DynLP over the stream (Fig. 7, held on the total as the
+    reference's ``test_dynlp_fewer_iterations_than_itlp`` holds it: on this
+    stream DynLP's frontier loop takes more sweeps than ITLP in batch 2,
+    in both packages) and STLP's predictions agree with DynLP's at ≥ 0.97
+    in every batch (Fig. 8)."""
+    spec = StreamSpec(total_vertices=vertices, batch_size=batch_size, seed=42,
+                      class_sep=6.0, noise=0.9)
+    gi, gs = DynamicGraph(emb_dim=spec.emb_dim, k=5), DynamicGraph(emb_dim=spec.emb_dim, k=5)
+    itlp, exact = ITLP(gi, delta=DELTA), STLP(gs)
+    solve = {}
+    itlp_module.propagate_full_ell = timed_sync(propagate_full_ell, solve, "itlp")
+    stlp_module.harmonic_solve = timed_sync(harmonic_solve, solve, "stlp")
+    ell_propagate_step.launches = 0
+    argkmin_candidates.launches = 0
+    iters, dyn_iters = [], []
+    try:
+        for t, (batch, _) in enumerate(gaussian_mixture_stream(spec)):
+            solve.clear()
+            si, ss = itlp.step(batch), exact.step(batch)
+            dyn, view = prefix["batches"][t], prefix["views"][t]
+            require(graph_digest(gi) == dyn["digest"] == graph_digest(gs),
+                    f"batch {t}: the ITLP/STLP graphs differ from path 1's")
+            ids = np.flatnonzero(view.alive & (view.labels == UNLABELED))
+            agree = accuracy((gs.f[ids] >= 0.5).astype(np.int8),
+                             (view.f[ids] >= 0.5).astype(np.int8))
+            print(f"   batch {t}: DynLP {dyn['wall_ms']:8.1f} ms (solve {dyn['solve_ms']:6.1f} ms, "
+                  f"{dyn['iterations']:4d} it)  ITLP {si.wall_ms:8.1f} ms (solve "
+                  f"{solve['itlp']:7.1f} ms, {si.iterations:5d} it)  STLP {ss.wall_ms:8.1f} ms "
+                  f"(solve {solve['stlp']:7.1f} ms, U={ss.num_unlabeled}, dense "
+                  f"{ss.dense_bytes / 1e9:.3f} GB)  ITLP/DynLP: wall "
+                  f"{si.wall_ms / dyn['wall_ms']:.3f}x, solve "
+                  f"{solve['itlp'] / dyn['solve_ms']:.2f}x, iterations "
+                  f"{si.iterations / dyn['iterations']:.2f}x  DynLP-STLP agreement "
+                  f"{agree:.4f}", flush=True)
+            require(si.converged, f"ITLP batch {t} did not converge")
+            require(agree >= 0.97, f"batch {t}: DynLP-STLP agreement {agree} < 0.97")
+            iters.append(si.iterations)
+            dyn_iters.append(dyn["iterations"])
+    finally:
+        itlp_module.propagate_full_ell = propagate_full_ell
+        stlp_module.harmonic_solve = harmonic_solve
+    launches = ell_propagate_step.launches
+    fewer = [t for t, (i, d) in enumerate(zip(iters, dyn_iters)) if i <= d]
+    print(f"   sweep launches {launches} = ITLP iterations {sum(iters)}; argkmin "
+          f"{argkmin_candidates.launches}; graphs == path 1's after every batch; iterations "
+          f"over the stream ITLP {sum(iters)} vs DynLP {sum(dyn_iters)} "
+          f"({sum(iters) / sum(dyn_iters):.2f}x); batches where ITLP took no more: {fewer}")
+    require(launches == sum(iters), "sweep launches != ITLP's iterations")
+    require(sum(iters) > sum(dyn_iters), "ITLP took no more iterations than DynLP")
+    require(argkmin_candidates.launches == 0, "a baseline launched argkmin")
+    return dict(launches=launches)
+
+
+def phase_itlp_full(ell_last, graph3):
+    """Path 5 at full size, on path 3's last snapshot (unpermuted, the
+    problem phase 8 times the sweep on): ITLP's solve from 0.5 against that
+    batch's DynLP solve, held bitwise to the plain ``propagate_full``; exact
+    STLP on the same graph must refuse the dense solve."""
+    p, f0, fr, kw = ell_last["problem"], ell_last["f0"], ell_last["frontier0"], ell_last["kw"]
+    half = torch.full_like(f0, 0.5)
+    ell_propagate_step.launches = 0
+    res = propagate_full_ell(p, half, delta=DELTA)
+    launches = ell_propagate_step.launches
+    plain = propagate_full(p, half, delta=DELTA)
+    same = torch.equal(res.f.view(torch.int32), plain.f.view(torch.int32))
+    require(res.converged and launches == res.iterations == plain.iterations and same,
+            "full-size ITLP: kernel loop != propagate_full, or launches != iterations")
+    itlp_ms = _wall_ms(lambda: propagate_full_ell(p, half, delta=DELTA))
+    dyn_ms = _wall_ms(lambda: run_propagation(p, f0, fr, backend="ell_cuda", **kw))
+    dyn_it = ell_last["res"].iterations
+    print(f"   (U, K)={tuple(p.nbr.shape)}, {int(p.valid.sum())} rows: ITLP from 0.5 "
+          f"{res.iterations} iterations (== propagate_full, F bitwise), {itlp_ms:.1f} ms; "
+          f"DynLP's solve of the batch {dyn_it} iterations, {dyn_ms:.1f} ms; ITLP/DynLP "
+          f"solve {itlp_ms / dyn_ms:.2f}x, iterations {res.iterations / dyn_it:.2f}x")
+    g = DynamicGraph(emb_dim=graph3.emb_dim, k=graph3.k, knn_block=graph3.knn_block)
+    g.load_state_arrays(graph3.state_arrays())
+    nothing = BatchUpdate(ins_emb=np.zeros((0, g.emb_dim), np.float32),
+                          ins_labels=np.zeros(0, np.int8), del_ids=np.zeros(0, np.int64))
+    cap = STLP(g).max_unlabeled
+    if int(p.valid.sum()) <= cap:  # a --stream-vertices run below STLP's wall
+        print(f"   STLP's refusal not checked: {int(p.valid.sum())} rows <= its cap {cap}")
+    else:
+        try:
+            STLP(g).step(nothing)
+        except MemoryError as e:
+            print(f"   STLP on the same graph: MemoryError ({e})")
+        else:
+            raise AssertionError("STLP at full size did not refuse the dense solve")
+    return dict(iterations=res.iterations, launches=launches, ms=itlp_ms, dyn_ms=dyn_ms,
+                dyn_iterations=dyn_it)
+
+
+def split_batch(batch, parts):
+    """``batch`` as ``parts`` sub-batches: its insertions in order, its
+    deletions spread evenly."""
+    ins = np.array_split(np.arange(len(batch.ins_emb)), parts)
+    dels = np.array_split(batch.del_ids, parts)
+    return [BatchUpdate(ins_emb=batch.ins_emb[i], ins_labels=batch.ins_labels[i], del_ids=d)
+            for i, d in zip(ins, dels)]
+
+
+def drive_subbatches(eng, subs):
+    """Submit ``subs`` pipelined (batch t+1 before batch t is drained) and
+    return their stats, submit times and solve times, with the launches."""
+    solves, submit_ms, stats = [], [], []
+
+    def solve_timed(problem, f0, frontier0, **kw):  # on the engine's solve thread
+        t0 = time.perf_counter()
+        res = run_propagation(problem, f0, frontier0, **kw)
+        if kw.get("stream") is not None:
+            kw["stream"].synchronize()
+        solves.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    ops_module.run_propagation = solve_timed
+    ell_propagate_step.launches = 0
+    argkmin_candidates.launches = 0
+    bsr_spmv.launches = 0
+    try:
+        for sb in subs:
+            t0 = time.perf_counter()
+            prev = eng.submit(sb)
+            submit_ms.append((time.perf_counter() - t0) * 1e3)
+            if prev is not None:
+                stats.append(prev)
+        stats.append(eng.drain())
+    finally:
+        ops_module.run_propagation = run_propagation
+    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
+                    bsr=bsr_spmv.launches)
+    require(len(stats) == len(subs) == len(solves), "a sub-batch did not solve")
+    require(all(st.converged for st in stats), "a sub-batch did not converge")
+    return stats, submit_ms, solves, launches
+
+
+def phase_landmark(vertices, batch_size, parts=10):
+    """Path 6: path 3's checkpoint restored as a ``landmark`` engine and as the
+    exact default engine; the stream's next batch as ``parts`` sub-batches
+    through both, pipelined.  Held: the latch engages, hot-set agreement
+    with the exact engine ≥ 0.98, the largest hot rung ≤ half the exact
+    rung, launches equal to chunks, insertions and sweeps, every argkmin
+    launch of the assignment bitwise to its plain version, and a checkpoint
+    of the landmark engine restored byte-identical."""
+    root = REPO / "build" / "path4"
+    cfg = LandmarkConfig(num_landmarks=64, assign_k=4, hot_ttl=1)
+    batch, _ = serve_batches(vertices, batch_size)[0]
+    subs = split_batch(batch, parts)
+    inserting = sum(len(sb.ins_emb) > 0 for sb in subs)
+    lm = StreamEngine.restore(str(root / "path3"), backend="landmark", landmark=cfg)
+    ex = StreamEngine.restore(str(root / "path3"), backend=None)
+    require(lm._lm is not None and not lm._lm.ready and lm.ingestor.store.emb.is_cuda,
+            "the landmark engine's state")
+
+    state = lm._lm
+    kept = []  # every assignment launch's inputs
+    refreshes = []  # (ms, chunks, rows) of every refresh
+    real_refresh = state.refresh
+
+    def refresh(g, store=None):  # synchronized host time of each refresh
+        c0 = state.assign_chunks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_refresh(g, store)
+        torch.cuda.synchronize()
+        refreshes.append(((time.perf_counter() - t0) * 1e3, state.assign_chunks - c0,
+                          g.num_nodes))
+
+    def argkmin_kept(*a, **kw):
+        out = argkmin_candidates(*a, **kw)
+        kept.append(dict(args=[t.clone() for t in a[:5]], base=kw["base_id"],
+                         slack=kw["slack"], k=kw["k"]))
+        return out
+
+    cold_ms = []  # the cold pass of every commit, its copy back included
+    real_cold = state.cold_values
+
+    def cold_values(lm_f):
+        t0 = time.perf_counter()
+        out = real_cold(lm_f)
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    state.refresh, state.cold_values = refresh, cold_values
+    landmark_module.argkmin_candidates = argkmin_kept
+    try:
+        lst, lsub, lsolve, llaunch = drive_subbatches(lm, subs)
+    finally:
+        landmark_module.argkmin_candidates = argkmin_candidates
+        del state.refresh, state.cold_values
+    est, esub, esolve, elaunch = drive_subbatches(ex, subs)
+
+    summary = lm.transport_summary()["landmark"]
+    chunks = state.assign_chunks
+    act_ms, act_chunks, act_rows = refreshes[0]
+    lsweeps, esweeps = sum(s.iterations for s in lst), sum(s.iterations for s in est)
+    for i, (a, b) in enumerate(zip(lst, est)):
+        print(f"   sub-batch {i}: landmark submit {lsub[i]:7.1f} ms, solve {lsolve[i]:6.1f} ms, "
+              f"{a.iterations:4d} it, rung {a.bucket}, cold pass {cold_ms[i]:.2f} ms | exact "
+              f"submit {esub[i]:7.1f} ms, solve {esolve[i]:6.1f} ms, {b.iterations:4d} it, "
+              f"rung {b.bucket}", flush=True)
+    hot_rung = max(s.bucket[0] for s in lst)
+    exact_rung = max(s.bucket[0] for s in est)
+    g, ge = lm.graph, ex.graph
+    require_same_graph(lm, ex, "landmark vs exact engine", tuple(k for k in STATE_KEYS
+                                                                if k != "f"))
+    ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
+    age = lm.batches - lm._touched_at[ids]
+    hot = (lm._touched_at[ids] >= 0) & (age <= cfg.hot_ttl)
+    agree_hot = float(((g.f[ids] >= 0.5) == (ge.f[ids] >= 0.5))[hot].mean())
+    agree_all = float(((g.f[ids] >= 0.5) == (ge.f[ids] >= 0.5)).mean())
+    print(f"   activation refresh {act_ms:.2f} ms ({act_chunks} argkmin chunks of "
+          f"{ASSIGN_CHUNK} rows over {act_rows} rows); later refreshes "
+          f"{[round(r_[0], 2) for r_ in refreshes[1:]]} ms; cold pass median "
+          f"{np.median(cold_ms):.2f} ms; cold rows served {summary['cold_rows']} over "
+          f"{summary['batches']} batches")
+    print(f"   hot rung rows {hot_rung} (largest) vs exact rung rows {exact_rung}: "
+          f"{hot_rung / exact_rung:.3f}; sweeps landmark {lsweeps} / exact {esweeps}; "
+          f"hot set {int(hot.sum())} of {len(ids)} unlabeled rows; agreement with the "
+          f"exact engine: hot {agree_hot:.4f}, all {agree_all:.4f}")
+    print(f"   launches: landmark engine argkmin {llaunch['argkmin']} (= {chunks} chunks + "
+          f"{inserting} sub-batches with insertions), sweep {llaunch['ell']}; exact engine "
+          f"argkmin {elaunch['argkmin']}, sweep {elaunch['ell']}")
+    require(lm._lm_streaming and summary["streaming"], "the landmark latch did not engage")
+    require(all(s.backend == "landmark" for s in lst), "a sub-batch was not on landmark")
+    require(all(s.backend == "ell_cuda" for s in est), "an exact sub-batch was not on ell_cuda")
+    require(act_chunks == -(-act_rows // ASSIGN_CHUNK),
+            "the activation refresh did not assign every row")
+    require(agree_hot >= 0.98, f"hot-set agreement {agree_hot} < 0.98")
+    require(hot_rung <= 0.5 * exact_rung, f"hot rung {hot_rung} > half the exact {exact_rung}")
+    require(llaunch["argkmin"] == chunks + inserting == len(kept) + inserting,
+            "landmark argkmin launches != assignment chunks + sub-batches with insertions")
+    require(llaunch["ell"] == lsweeps and elaunch["ell"] == esweeps,
+            "sweep launches != sweeps")
+    require(elaunch["argkmin"] == inserting, "exact argkmin launches != insertions")
+    require(llaunch["bsr"] == elaunch["bsr"] == 0, "path 6 launched the SpMV")
+    ak_err = max(check_argkmin(f"path-6 assignment chunk {i}", inp,
+                               show=i in (0, len(kept) - 1))
+                 for i, inp in enumerate(kept))
+    print(f"   all {len(kept)} assignment launches (C={kept[0]['args'][0].shape[0]}, "
+          f"M={ASSIGN_CHUNK}, TK={min(4 + SELECT_MARGIN, kept[0]['args'][0].shape[0])}): "
+          "kernel == plain version bitwise")
+
+    t0 = time.perf_counter()
+    lm.checkpoint(str(root / "path6"))
+    r = StreamEngine.restore(str(root / "path6"))
+    ck_ms = (time.perf_counter() - t0) * 1e3
+    require_same_state(r, lm, "landmark checkpoint")
+    require(r._lm_streaming and r.landmark_batches == lm.landmark_batches
+            and r.landmark_cold_rows == lm.landmark_cold_rows
+            and np.array_equal(r._touched_at, lm._touched_at), "landmark counters/clock")
+    require(np.array_equal(r._lm.lm_ids, state.lm_ids)
+            and all(torch.equal(getattr(r._lm, k), getattr(state, k))
+                    for k in ("lm_emb", "lm_valid", "assign_idx", "assign_w")),
+            "landmark factorization after restore")
+    pid = probe_ids(r.graph)
+    require_same_answers(r.device_view().query(pid), lm.device_view().query(pid),
+                         "landmark restore")
+    print(f"   checkpoint + restore of the landmark engine {ck_ms:.1f} ms: graph, store, "
+          f"factorization, clock and {len(pid)} answers byte-identical")
+    for e in (lm, ex, r):
+        e.close()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=llaunch, exact_launches=elaunch, argkmin_err=ak_err,
+                chunks=chunks, agree_hot=agree_hot)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -1722,11 +2129,20 @@ def main(argv=None) -> int:
         tm = phase_timing(ell_last, args.save_sweeps)
         ta = phase_argkmin_timing(out3["argkmin"])
         tc, tf = phase_cc_timing(cc)
+    with Phase("path 5: ITLP.step and STLP.step over path 1's stream"):
+        out5 = phase_baselines(args.vertices, args.batch, prefix)
+    with Phase("path 5 at full size: ITLP on path 3's last snapshot"):
+        full5 = phase_itlp_full(ell_last, out3["engine"].graph)
+    with Phase("path 6: StreamEngine(backend='landmark') on path 3's checkpoint"):
+        out6 = phase_landmark(args.stream_vertices, args.batch)
     record = {"kernels": [{
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
         "replaces": "src/repro/kernels/ell_propagate.py:58",
         "launches": out2["launches"]["ell"], "path4_launches": out4["launches"]["ell"],
+        "path5_launches": out5["launches"], "path5_full_launches": full5["launches"],
+        "path6_launches": out6["launches"]["ell"],
+        "path6_exact_launches": out6["exact_launches"]["ell"],
         "max_abs_err": max(sweep_err, tm["max_abs_err"], out4["sweep_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -1735,14 +2151,18 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/argkmin.cu",
         "replaces": "src/repro/kernels/argkmin.py:117",
         "launches": out3["launches"]["argkmin"], "path4_launches": out4["launches"]["argkmin"],
-        "max_abs_err": max(argkmin_err, ta["max_abs_err"], out4["argkmin_err"]),
+        "path5_launches": 0, "path6_launches": out6["launches"]["argkmin"],
+        "path6_exact_launches": out6["exact_launches"]["argkmin"],
+        "max_abs_err": max(argkmin_err, ta["max_abs_err"], out4["argkmin_err"],
+                           out6["argkmin_err"]),
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
         "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
     }, {
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv.py:58",
-        "launches": out3["launches"]["bsr"], "max_abs_err": max(bsr_err, tb["max_abs_err"]),
+        "launches": out3["launches"]["bsr"], "path5_launches": 0,
+        "path6_launches": out6["launches"]["bsr"], "max_abs_err": max(bsr_err, tb["max_abs_err"]),
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
     }, {
@@ -1770,7 +2190,12 @@ def main(argv=None) -> int:
           f"path 3 (engine, bsr) {out3['launches']['bsr']} SpMV, "
           f"{out3['launches']['argkmin']} argkmin; path 4 (service, ell_cuda) "
           f"{out4['launches']['ell']} sweep kernel, {out4['launches']['argkmin']} argkmin over "
-          f"{out4['windows']} windows; cc entry point {cc['launches']} fixpoint "
+          f"{out4['windows']} windows; path 5 (ITLP) {out5['launches']} sweep kernel at "
+          f"{args.vertices} vertices, {full5['launches']} at full size; path 6 (landmark) "
+          f"{out6['launches']['argkmin']} argkmin ({out6['chunks']} assignment chunks), "
+          f"{out6['launches']['ell']} sweep kernel, its exact twin "
+          f"{out6['exact_launches']['argkmin']} argkmin, {out6['exact_launches']['ell']} sweep "
+          f"kernel; cc entry point {cc['launches']} fixpoint "
           f"({cc['iterations']} steps), its step loop {cc['step_launches']} hook steps")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))

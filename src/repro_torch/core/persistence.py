@@ -11,7 +11,10 @@ marker), so a restarted engine resumes bit-identically:
   * the ``EmbeddingStore`` contents and per-row k-th weights (device
     ingest), so the restored selector prunes exactly as before,
   * the commit/batch counters and the rung metadata (per-rung backends,
-    ``bsr`` slot budgets).
+    ``bsr`` slot budgets),
+  * the ``landmark`` backend's factorization (landmark ids and rows, the
+    assignment table) and its working-set clock and latch, so a restored
+    hot/cold stream replays identically.
 
 Keys and meta are the reference's, so a checkpoint written by either
 package restores in the other.  Keys that have no meaning on one device
@@ -120,6 +123,19 @@ def engine_state(engine: StreamEngine) -> dict:
         for k in ("emb", "valid", "kth"):
             state[f"store_{k}"] = getattr(store, k).to("cpu", copy=True).numpy()
         meta["store_count"] = int(store.count)
+    lm = engine._lm
+    if lm is not None:
+        state["landmark_touched_at"] = engine._touched_at.copy()
+        meta["landmark"] = {
+            "streaming": engine._lm_streaming,
+            "batches": int(engine.landmark_batches),
+            "cold_rows": int(engine.landmark_cold_rows),
+            "ready": lm.ready,
+            **lm.state_meta(),
+        }
+        if lm.ready:
+            for k, v in lm.state_arrays().items():
+                state[f"landmark_{k}"] = v
     state["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
     return state
 
@@ -143,6 +159,7 @@ def restore_engine(
     max_k: object = _UNSET,
     read_placement: object = "auto",
     ingest: object = _UNSET,
+    landmark: object = _UNSET,
     device=None,
 ) -> StreamEngine:
     """Rebuild a ``StreamEngine`` from the latest (or given) checkpoint, on
@@ -156,6 +173,12 @@ def restore_engine(
     a ``bsr`` rung for replayed labels to stay bit-identical); otherwise
     they are re-derived at rung entry, as on a fresh stream, and the labels
     are the same either way.
+
+    ``landmark`` defaults to the saved configuration.  The saved landmark
+    state (factorization, working-set clock, latch, counters) reinstalls
+    when the engine's configuration keeps its geometry (the number of
+    landmarks and ``assign_k``); another geometry starts a fresh
+    factorization.
     """
     dev = resolve_device(device)
     if step is None:
@@ -167,9 +190,6 @@ def restore_engine(
     if meta.get("version") != STATE_VERSION:
         raise ValueError(f"checkpoint state version {meta.get('version')} != "
                          f"supported {STATE_VERSION}")
-    if meta.get("landmark") is not None:
-        raise ValueError("checkpoint was taken with the landmark backend, which the "
-                         "port does not have yet")
 
     g = DynamicGraph(meta["emb_dim"], k=meta["k"], knn_block=meta["knn_block"])
     g.load_state_arrays({k[len("graph_"):]: v for k, v in state.items()
@@ -193,6 +213,12 @@ def restore_engine(
              "kth": state["store_kth"]}, count=meta["store_count"])
         ingest = ingestor
 
+    lm_meta = meta.get("landmark")
+    if landmark is _UNSET:
+        landmark = ({key: lm_meta[key] for key in ("num_landmarks", "assign_k", "hot_ttl",
+                                                   "resample_factor", "dead_frac_max")}
+                    if lm_meta is not None else None)
+
     engine = StreamEngine(
         g,
         delta=meta["delta"],
@@ -204,8 +230,24 @@ def restore_engine(
         ingest=ingest,
         ingest_order=meta.get("ingest_order", "arrival"),
         read_placement=read_placement,
+        landmark=landmark,
         device=dev,
     )
+    if lm_meta is not None and engine._lm is not None:
+        cfg = engine._lm.cfg
+        if (cfg.num_landmarks, cfg.assign_k) == (lm_meta["num_landmarks"],
+                                                 lm_meta["assign_k"]):
+            if "landmark_touched_at" in state:
+                engine._touched_at = np.asarray(state["landmark_touched_at"],
+                                                np.int64).copy()
+            engine._lm_streaming = bool(lm_meta["streaming"])
+            engine.landmark_batches = int(lm_meta["batches"])
+            engine.landmark_cold_rows = int(lm_meta["cold_rows"])
+            if lm_meta.get("ready") and "landmark_ids" in state:
+                engine._lm.load_state(
+                    {k: state[f"landmark_{k}"]
+                     for k in ("ids", "emb", "lm_valid", "assign_idx", "assign_w")},
+                    lm_meta)
     engine.commits = int(meta["commits"])
     engine.batches = int(meta["batches"])
     engine.bucket_keys = {(int(u), int(k)) for u, k in meta["bucket_keys"]}

@@ -39,6 +39,16 @@ rung.  A Δ_t whose slot requirement exceeds the rung's budget runs on
 ``backend_overflows``.  Solved rows fold back through the order's inverse
 at ``drain``.
 
+The ``landmark`` backend changes the staging, not the solve: once its
+lazily sampled landmark state is ready and the registry resolves the
+engine's knob to ``"landmark"`` (a decision that then latches), snapshots
+restrict to the hot working set (rows a Δ_t touched within the last
+``hot_ttl`` batches), cold unlabeled neighbors fold their committed labels
+into the supernode weights (``snapshot.build_host_problem(hot=)``), and
+each commit runs the low-rank cold pass of ``kernels.landmark_propagate``
+over the cold rows.  Its labels answer for a hot-set agreement floor
+against the exact engine, not for equal bits.
+
 Reads: ``committed_view()`` is the last commit's labels on the host;
 ``device_view()`` the same labels on the device (``DeviceLabelView``),
 published lazily on the first call and then at every drain, on a read
@@ -47,8 +57,8 @@ persist the engine at a commit boundary (``core.persistence``).
 
 Not ported yet (the engine does not define them): the mesh
 (``mesh=``/``transport=``, the mesh keys of ``transport_summary``, the mesh
-read replica and ``view_sharding``), the ``landmark`` staging, and in
-checkpoints the ``auto:measured`` probe cache and the landmark state.
+read replica and ``view_sharding``), and in checkpoints the
+``auto:measured`` probe cache.
 """
 
 from __future__ import annotations
@@ -65,13 +75,14 @@ from repro_torch.core.components import compact_labels, component_order
 from repro_torch.core.dynlp import gprime_components
 from repro_torch.core.init_labels import supernode_init
 from repro_torch.core.propagate import PropagateResult, PropagationProblem
-from repro_torch.core.snapshot import (DeviceLabelView, HostSnapshot, LabelView, bucket_k,
-                                       build_host_problem, publish_device_view,
+from repro_torch.core.snapshot import (DeviceLabelView, HostSnapshot, LabelView, bucket,
+                                       bucket_k, build_host_problem, publish_device_view,
                                        reorder_host_snapshot)
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import ell_bsr_layout
+from repro_torch.kernels.landmark_propagate import LandmarkConfig, LandmarkState
 
 logger = logging.getLogger(__name__)
 
@@ -89,8 +100,9 @@ class StreamStats:
     # (0, 0) for a no-op Δ_t whose empty frontier staged nothing
     recompiled: bool  # True iff this Δ_t allocated a rung's buffers first
     transport: str = "single"  # "single", or "none" (no-op Δ_t)
-    backend: str = "none"  # "ref" / "ell_cuda" / "bsr"; "none" for a no-op
-    # Δ_t; a bsr rung's slot-budget overflow shows up as an "ell_cuda" batch
+    backend: str = "none"  # "ref" / "ell_cuda" / "bsr" / "landmark"; "none"
+    # for a no-op Δ_t; a bsr rung's slot-budget overflow shows up as an
+    # "ell_cuda" batch; a "landmark" batch solved the hot working set only
 
 
 @dataclasses.dataclass
@@ -113,6 +125,9 @@ class _Pending:
     # bsr batches were solved in component order: the solved row of
     # original row i is rows[i] (None = staged unpermuted)
     rows: np.ndarray | None = None
+    # landmark batches only: the cold unlabeled rows left out of the
+    # staged hot problem, which drain serves through the low-rank pass
+    cold_ids: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -145,6 +160,7 @@ class StreamEngine:
         ingest: object = None,
         ingest_order: str = "arrival",
         read_placement: object = "auto",
+        landmark: object = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -204,6 +220,27 @@ class StreamEngine:
         self._slot_overflow_warned: set[tuple[int, int]] = set()
         self.bsr_batches = 0  # batches solved on the bsr backend
         self.backend_overflows = 0  # bsr batches sent to ell_cuda
+        # landmark: the approximate hot/cold backend's configuration
+        # (kernels.landmark_propagate).  None = off, unless the backend knob
+        # names "landmark" (then a default config); True = the default
+        # config; a dict or a LandmarkConfig tunes it.  With backend
+        # None/"auto" and a config, the registry may take landmark once the
+        # state is ready; the first such decision latches for the engine's
+        # lifetime, so every later rung keeps one contract.
+        if landmark is None and backend == "landmark":
+            landmark = True
+        if landmark is True:
+            landmark = LandmarkConfig()
+        elif isinstance(landmark, dict):
+            landmark = LandmarkConfig(**landmark)
+        self._lm = (LandmarkState(landmark, graph.emb_dim, device=self.device)
+                    if landmark is not None else None)
+        self._lm_streaming = False  # the hot/cold latch
+        # the batch each vertex was last touched by; the hot working set is
+        # every vertex touched within hot_ttl batches
+        self._touched_at = np.full(graph.num_nodes, -1, np.int64)
+        self.landmark_batches = 0  # batches solved on the hot/cold split
+        self.landmark_cold_rows = 0  # cold rows served by the low-rank pass
         # bucket_key -> two generations of device problem buffers; the
         # generation toggles per commit so the in-flight solve never shares
         # storage with the snapshot being staged
@@ -272,6 +309,58 @@ class StreamEngine:
                 "this batch runs on ell_cuda (warned once per rung)", key, needed,
                 self._slot_budgets[key])
         self.backend_overflows += 1
+
+    def _note_touched(self, effect) -> None:
+        """Stamp the vertices a Δ_t touched with the current batch index."""
+        g = self.graph
+        if len(self._touched_at) < g.num_nodes:
+            grown = np.full(g.num_nodes, -1, np.int64)
+            grown[: len(self._touched_at)] = self._touched_at
+            self._touched_at = grown
+        self._touched_at[effect.affected] = self.batches
+        self._touched_at[effect.new_ids] = self.batches
+
+    def _landmark_gate(self) -> np.ndarray | None:
+        """Whether this Δ_t streams the hot/cold split: the hot row mask,
+        or None for exact staging.
+
+        The decision precedes the snapshot build (the restriction changes
+        the rung the batch lands in), so the registry is asked with the
+        full unlabeled count and the state's readiness, and the first
+        "landmark" verdict latches: later batches stay on the hot/cold
+        contract even when deletions shrink the graph under the auto
+        threshold."""
+        g = self.graph
+        lm = self._lm
+        if not lm.ready:
+            lm.refresh(g, getattr(self.ingestor, "store", None))  # lazy activation
+        if not self._lm_streaming:
+            n_unl = int((g.alive & (g.labels == UNLABELED)).sum())
+            resolved = ops.select_backend(self.backend, device=self.device,
+                                          num_rows=bucket(n_unl), landmark_ready=lm.ready)
+            if resolved != "landmark" or not lm.ready:
+                return None
+            self._lm_streaming = True
+            logger.info("stream landmark: hot/cold split active (%d landmarks, hot_ttl %d, "
+                        "%d unlabeled rows)", lm.num_landmarks, lm.cfg.hot_ttl, n_unl)
+        age = self.batches - self._touched_at
+        return (self._touched_at >= 0) & (age <= lm.cfg.hot_ttl)
+
+    def _landmark_commit(self, p: _Pending) -> None:
+        """A hot/cold batch's commit: refresh the factorization (new rows
+        get assignments; the landmark labels are re-read in O(L)) and fold
+        the low-rank estimates over the batch's cold unlabeled rows; rows
+        with no assignment keep their committed labels."""
+        g = self.graph
+        lm = self._lm
+        lm.refresh(g, getattr(self.ingestor, "store", None))
+        est, wsum = lm.cold_values(lm.landmark_values(g))
+        ids = p.cold_ids
+        sel = ids[wsum[ids] > 0]
+        g.f[sel] = est[sel]
+        p.view_f[sel] = est[sel]
+        self.landmark_batches += 1
+        self.landmark_cold_rows += len(sel)
 
     def _stage_single(self, host: HostSnapshot) -> _Staging:
         """Resolve a Δ_t's staging: the rung's backend; a bsr rung puts the
@@ -358,6 +447,8 @@ class StreamEngine:
         # ---- Step 1: change adjustment & sparsification (host) ----
         effect = g.apply_batch(batch, tau=self.tau, selector=self.ingestor)
         m = len(effect.new_ids)
+        if self._lm is not None:
+            self._note_touched(effect)
 
         # ``effect.affected`` is alive-filtered, so the frontier is nonempty
         # iff some affected vertex is unlabeled
@@ -373,10 +464,21 @@ class StreamEngine:
                 view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy())
             return prev
 
+        # ---- the landmark gate, before the snapshot build (the hot
+        # restriction changes the rung this Δ_t lands in) ----
+        hot = self._landmark_gate() if self._lm is not None else None
+        cold_ids = (None if hot is None
+                    else np.flatnonzero(g.alive & (g.labels == UNLABELED) & ~hot))
+
         # ---- stage batch t while batch t-1 still propagates ----
         host = build_host_problem(g, max_degree=self.max_degree, auto_bucket=True,
                                   row_multiple=self._row_multiple, max_k=self.max_k,
-                                  warned=self._max_k_warned)
+                                  warned=self._max_k_warned, hot=hot)
+        if hot is not None:
+            # the hot/cold contract overrides the rung's registry scan: a
+            # hot problem is small by design, and an exact backend there
+            # would mislabel approximate batches
+            self._backend_modes[host.bucket_key] = "landmark"
         u = len(host.unl_ids)
         u_pad = len(host.valid)
         frontier = np.zeros(u_pad, bool)
@@ -424,6 +526,7 @@ class StreamEngine:
             job=job, unl_ids=host.unl_ids, t0=t0, num_components=n_components,
             frontier_size=int(frontier.sum()), bucket=host.bucket_key,
             recompiled=recompiled, transport="single", backend=st.backend, rows=st.rows,
+            cold_ids=cold_ids,
             # labels/alive fixed by apply_batch; f holds batch t-1's
             # committed labels plus this batch's supernode inits
             view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy(),
@@ -450,6 +553,8 @@ class StreamEngine:
             self.graph.f[p.unl_ids] = solved
             p.view_f[p.unl_ids] = solved
             iterations, converged, resid = res.iterations, res.converged, res.max_residual
+        if p.cold_ids is not None:
+            self._landmark_commit(p)
         self.commits += 1
         self._view = LabelView(f=p.view_f, labels=p.view_labels,
                                alive=p.view_alive, commit_id=self.commits)
@@ -485,9 +590,11 @@ class StreamEngine:
 
     def transport_summary(self) -> dict:
         """JSON-friendly account of the per-rung backend decisions: the
-        requested backend, each rung's backend and bsr tile-slot budget, and
-        how many batches rode bsr or overflowed to ell_cuda.  (The
-        reference's mesh keys come with the mesh.)"""
+        requested backend, each rung's backend and bsr tile-slot budget, how
+        many batches rode bsr or overflowed to ell_cuda, and the landmark
+        split (its batches, cold rows served, resamples and argkmin
+        assignment chunks).  (The reference's mesh keys come with the
+        mesh.)"""
         def by_rung(d):
             return {f"{u}x{k}": v for (u, k), v in sorted(d.items())}
 
@@ -497,6 +604,15 @@ class StreamEngine:
             "slot_budgets": by_rung(self._slot_budgets),
             "bsr_batches": self.bsr_batches,
             "backend_overflows": self.backend_overflows,
+            "landmark": {
+                "configured": self._lm is not None,
+                "streaming": self._lm_streaming,
+                "num_landmarks": self._lm.num_landmarks if self._lm else 0,
+                "batches": self.landmark_batches,
+                "cold_rows": self.landmark_cold_rows,
+                "resamples": self._lm.resamples if self._lm else 0,
+                "assign_chunks": self._lm.assign_chunks if self._lm else 0,
+            },
         }
 
     def committed_view(self) -> LabelView:

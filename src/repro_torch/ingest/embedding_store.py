@@ -181,6 +181,17 @@ class EmbeddingStore:
         self.appends += 1
         return batch, bvalid, base_id
 
+    def landmark_rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows ``[lo, hi)`` as a device view, dim-padded: the landmark
+        backend's assignment blocks (``kernels.landmark_propagate``) come
+        straight off the resident tensor, with no host staging."""
+        return self.emb[lo:hi]
+
+    def landmark_gather(self, ids: np.ndarray) -> torch.Tensor:
+        """The sampled landmark rows by global id, gathered on the device
+        (one small gather a resample, never a copy of the store)."""
+        return self.emb[self._put(np.asarray(ids, np.int64))]
+
     def kill(self, ids: np.ndarray) -> None:
         """Mark rows dead (deletions): they stop matching at once."""
         if not len(ids):

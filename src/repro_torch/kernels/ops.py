@@ -17,14 +17,29 @@ Registered backends:
                      ``kernels.bsr_spmv``), tiles scattered on the device
                      from the ELL tensor and a host slot map.  Taken only
                      when asked for by name.
+  * ``"landmark"`` — the approximate hot/cold split of the streaming engine
+                     (``kernels.landmark_propagate``): the engine stages the
+                     hot working set with the cold tail folded in as
+                     boundary weights, and serves the cold tail from a
+                     low-rank landmark pass at commit.  The staged problem
+                     is solved exactly (``propagate_ell`` on a CUDA device,
+                     ``propagate`` on the CPU), so a standalone call gets
+                     the exact answer.  Auto-eligible only when the caller
+                     declares ``ProblemInfo.landmark_ready`` and the rows
+                     reach ``LANDMARK_AUTO_MIN_ROWS``.
 
 ``backend=None``/``"auto"`` takes the highest-priority backend whose
-``auto_eligible`` accepts the solve: ``ell_cuda`` on a CUDA device at every
-size (the reference's TPU row threshold was never measured on a GPU),
-``ref`` on the CPU.  ``bsr`` is never auto-eligible here: the reference
-admits it on a TPU only, above a tile fill (``bsr_auto_fill_min``) that no
-measurement on the H100 has made a case for.  The port reads no
-environment variable to change that (``REPRO_BACKEND`` is not ported).
+``auto_eligible`` accepts the solve: ``landmark`` where the engine runs
+the hot/cold machinery (above), else ``ell_cuda`` on a CUDA device at
+every size (the reference's TPU row threshold was never measured on a
+GPU), ``ref`` on the CPU.  ``bsr`` is never auto-eligible here: the
+reference admits it on a TPU only, above a tile fill
+(``bsr_auto_fill_min``) that no measurement on the H100 has made a case
+for.  The port reads no environment variable to change that
+(``REPRO_BACKEND`` is not ported).
+
+``propagate_full_ell`` is ITLP's iteration (every row, every sweep) through
+the same sweep kernel.
 """
 
 from __future__ import annotations
@@ -44,17 +59,25 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.bsr_spmv import bsr_spmv, ell_bsr_layout, fill_bsr_blocks
 from repro_torch.kernels.ell_propagate import ell_propagate_step
 
+# auto may take the approximate landmark backend only at row counts where
+# exact staging pressure is real (the reference's threshold)
+LANDMARK_AUTO_MIN_ROWS = 4096
+
 
 @dataclasses.dataclass(frozen=True)
 class ProblemInfo:
     """What auto-selection may know about a solve.
 
     ``block_fill`` is the post-component-reorder BSR fill; only the
-    streaming engine measures it (at rung entry)."""
+    streaming engine measures it (at rung entry).  ``landmark_ready``
+    declares that the caller runs the landmark hot/cold machinery (the
+    engine does, once its landmark state is sampled); plain callers leave
+    it False, which keeps ``landmark`` out of their auto scan."""
 
     device_type: str  # "cuda" or "cpu"
     num_rows: int | None = None
     block_fill: float | None = None
+    landmark_ready: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +138,8 @@ def select_backend(backend: str | None = None,
                    *,
                    device: str | torch.device | None = None,
                    num_rows: int | None = None,
-                   block_fill: float | None = None) -> str:
+                   block_fill: float | None = None,
+                   landmark_ready: bool = False) -> str:
     """Resolve ``backend`` (None/"auto" → registry scan on ``device``'s
     type, which defaults to the problem's device, else ``cuda``)."""
     if backend not in (None, "auto"):
@@ -125,7 +149,7 @@ def select_backend(backend: str | None = None,
     if num_rows is None and problem is not None:
         num_rows = problem.num_unlabeled
     info = ProblemInfo(device_type=torch.device(device).type, num_rows=num_rows,
-                       block_fill=block_fill)
+                       block_fill=block_fill, landmark_ready=landmark_ready)
     for spec in _by_priority():
         if spec.auto_eligible(info):
             return spec.name
@@ -138,10 +162,12 @@ def backend_candidates(backend: str | None = None, *,
 
     The streaming engine asks once, at construction, whether ``bsr`` is
     among them; only then does it pad rows to the tile edge and measure
-    the tile fill at each rung's entry."""
+    the tile fill at each rung's entry.  The scan is optimistic: every
+    measured property at its most favourable, ``landmark_ready`` too."""
     if backend not in (None, "auto"):
         return (backend_spec(backend).name,)
-    optimistic = ProblemInfo(device_type=torch.device(device).type, block_fill=1.0)
+    optimistic = ProblemInfo(device_type=torch.device(device).type, block_fill=1.0,
+                             landmark_ready=True)
     return tuple(s.name for s in _by_priority() if s.auto_eligible(optimistic))
 
 
@@ -176,6 +202,34 @@ def propagate_ell(
         f, it = f_new, it + 1
     return PropagateResult(f=f, iterations=it, converged=not bool(frontier.any()),
                            max_residual=float(resid))
+
+
+def propagate_full_ell(
+    problem: PropagationProblem,
+    f0: torch.Tensor,
+    delta: float = 1e-4,
+    max_iters: int = 100_000,
+) -> PropagateResult:
+    """ITLP's full iteration (``core.propagate.propagate_full``) through the
+    fused sweep kernel: every valid row updates every sweep (the frontier
+    is ``valid``, the rows ``propagate_full`` updates), until no row's
+    ``changed`` is set, which is ``max|ΔF| > δ`` on the same float32
+    values.  One host sync a sweep; the residual is reduced once, after
+    the last sweep.  Gives ``propagate_full``'s bits and iteration count.
+    """
+    p = problem
+    on = p.valid.contiguous()
+    f = prev = f0.to(torch.float32).contiguous()
+    it = 0
+    moving = True
+    while it < max_iters and moving:
+        prev, (f, changed) = f, ell_propagate_step(p.nbr, p.wgt, p.wl0, p.wl1, on, f,
+                                                   delta=delta)
+        it += 1
+        moving = bool(changed.any())
+    resid = float(_max_abs(f - prev)) if it else float("inf")
+    return PropagateResult(f=f, iterations=it, converged=bool(it) and not moving,
+                           max_residual=resid)
 
 
 def _bsr_fixpoint(problem: PropagationProblem, slot: torch.Tensor, f0: torch.Tensor,
@@ -280,6 +334,14 @@ def propagate_bsr(
     return res._replace(f=res.f[torch.from_numpy(inv[:n]).to(dev)])
 
 
+def _run_landmark(problem, f0, frontier0, *, delta, max_iters):
+    """The landmark backend's solve: the exact one on the staged (hot)
+    problem, ``propagate_ell`` on a CUDA device and ``propagate`` on the
+    CPU; the approximation lives in how the engine stages for it."""
+    run = propagate_ell if problem.device.type == "cuda" else propagate
+    return run(problem, f0, frontier0, delta=delta, max_iters=max_iters)
+
+
 register_backend(BackendSpec(
     name="ref",
     auto_priority=10,  # the always-eligible floor of the scan
@@ -307,6 +369,14 @@ register_backend(BackendSpec(
     # 16, PERF.md).  8 on the CPU as the reference off TPU, so the host
     # state stays byte-identical to the JAX package's.
     block_size=lambda device_type: 8,
+))
+
+register_backend(BackendSpec(
+    name="landmark",
+    auto_priority=40,  # when the caller runs hot/cold, scale wins
+    auto_eligible=lambda info: info.landmark_ready and (
+        info.num_rows is None or info.num_rows >= LANDMARK_AUTO_MIN_ROWS),
+    run=_run_landmark,
 ))
 
 

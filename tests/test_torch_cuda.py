@@ -581,3 +581,95 @@ def test_checkpoint_round_trip_of_a_device_ingest_engine(card, tmp_path):
     ids = np.arange(-3, eng.graph.num_nodes + 3)
     for a, b in zip(r.device_view().query(ids), eng.device_view().query(ids)):
         assert a.tobytes() == b.tobytes()
+
+
+# --------------------------------------------------------------------- #
+# the baselines and the landmark backend on the card
+# --------------------------------------------------------------------- #
+def test_propagate_full_ell_gives_propagate_fulls_bits(card):
+    """ITLP's iteration through the sweep kernel (every valid row on, a
+    launch a sweep) against the plain ``propagate_full`` on the card: F's
+    bits and the iteration count, padding rows left at f0."""
+    from repro_torch.core.propagate import PropagationProblem, propagate_full
+    from repro_torch.kernels.ops import propagate_full_ell
+
+    rng = np.random.default_rng(17)
+    args = _sweep_inputs(rng, 3000, 24, 3000, "all", pad_rows=0.1)
+    nbr, wgt, wl0, wl1 = (torch.from_numpy(a).to(card) for a in args[:4])
+    valid = torch.arange(3000, device=card) < 2900  # the last 100 rows pad the bucket
+    nbr[~valid] = -1
+    wgt[~valid] = 0
+    wl0[~valid] = 0
+    wl1[~valid] = 0
+    p = PropagationProblem(nbr=nbr, wgt=wgt, wl0=wl0, wl1=wl1, valid=valid)
+    f0 = torch.full((3000,), 0.5, device=card)
+    before = ell_propagate_step.launches
+    got = propagate_full_ell(p, f0, delta=DELTA)
+    launches = ell_propagate_step.launches - before
+    want = propagate_full(p, f0, delta=DELTA)
+    assert got.converged and launches == got.iterations == want.iterations > 1
+    assert torch.equal(got.f.view(torch.int32), want.f.view(torch.int32))
+    assert torch.equal(got.f[2900:], f0[2900:])
+
+
+@pytest.mark.parametrize("c,valid", [(64, 64), (64, 37), (37, 37)])
+@pytest.mark.parametrize("m", [1024, 300])
+def test_argkmin_at_the_landmark_geometry(card, c, valid, m):
+    """The landmark assignment's call: a block of C landmark rows, the
+    first ``valid`` of them sampled (the engine pads a partial sample with
+    invalid rows), a chunk of 1,024 query rows with ``m`` real,
+    ``base_id = C`` (no self-match), k = 4 (TK = 12), kth all ``-inf``:
+    the kernel gives its plain version's bits."""
+    rng = np.random.default_rng(c + valid + m)
+    lm = normalize_rows(rng.normal(0, 1, (c, 16)).astype(np.float32))
+    block = np.zeros((1024, 16), np.float32)
+    block[:m] = normalize_rows(rng.normal(0, 1, (m, 16)).astype(np.float32))
+    args = [torch.from_numpy(lm).to(card), (torch.arange(c) < valid).to(card),
+            torch.full((c,), -np.inf, device=card), torch.from_numpy(block).to(card),
+            (torch.arange(1024) < m).to(card)]
+    before = argkmin_candidates.launches
+    got = argkmin_candidates(*args, c, 0.0, k=4)
+    want = argkmin_ref(*args, c, 0.0, topk=12)
+    torch.cuda.synchronize()
+    assert argkmin_candidates.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_landmark_engine_on_the_card_matches_the_cpu(card):
+    """A landmark engine of a few thousand vertices on the card and on the
+    CPU over the same mixed stream: graph and hot masks equal, the same
+    cold rows served, labels within 20·δ; the assignment goes through the
+    argkmin kernel (one launch a chunk)."""
+    spec = StreamSpec(total_vertices=4000, batch_size=200, seed=11, class_sep=6.0,
+                      noise=0.9, frac_deleted=0.2, frac_labeled=0.05)
+    cfg = dict(num_landmarks=32, assign_k=4, hot_ttl=3)
+    engines = [StreamEngine(DynamicGraph(16, 5), delta=DELTA, backend="landmark",
+                            landmark=cfg, device=dev) for dev in (card, "cpu")]
+    before = argkmin_candidates.launches
+    for b, _ in gaussian_mixture_stream(spec):
+        for e in engines:
+            e.step(b)
+        gg, gc = (e.graph for e in engines)
+        assert np.array_equal(engines[0]._touched_at, engines[1]._touched_at)
+        for name in ("src", "dst", "wgt", "alive", "labels"):
+            assert getattr(gg, name).tobytes() == getattr(gc, name).tobytes(), name
+        ids = np.flatnonzero(gc.alive & (gc.labels == -1))
+        assert np.abs(gg.f[ids] - gc.f[ids]).max() <= 20 * DELTA
+    sg, sc = (e.transport_summary()["landmark"] for e in engines)
+    assert sg == sc and sg["streaming"] and sg["cold_rows"] > 0
+    assert argkmin_candidates.launches - before == sg["assign_chunks"] > 0
+
+
+@pytest.mark.parametrize("gamma", [None, 1.0])
+def test_stlp_step_on_the_card_matches_the_cpu(card, gamma):
+    from repro_torch.core.stlp import STLP
+
+    spec = StreamSpec(total_vertices=2400, batch_size=800, seed=7, class_sep=6.0, noise=0.8)
+    graphs = [DynamicGraph(16, 5) for _ in range(2)]
+    engines = [STLP(g, gamma=gamma, device=dev) for g, dev in zip(graphs, (card, "cpu"))]
+    for b, _ in gaussian_mixture_stream(spec):
+        sg, sc = (e.step(b) for e in engines)
+        assert sg.num_unlabeled == sc.num_unlabeled
+        ids = np.flatnonzero(graphs[1].alive & (graphs[1].labels == -1))
+        assert np.abs(graphs[0].f[ids] - graphs[1].f[ids]).max() <= 1e-4

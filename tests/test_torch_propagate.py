@@ -147,8 +147,9 @@ def test_max_iters_stops_unconverged():
 
 def test_registry_auto_selection():
     """auto: ell_cuda on a CUDA device at every size, ref on the CPU; the
-    names are the port's own, and bsr is taken only by name."""
-    assert ops.backend_names() == ("ref", "ell_cuda", "bsr")
+    names are the port's own, bsr is taken only by name, and landmark only
+    by a caller that runs its hot/cold machinery (test_torch_landmark.py)."""
+    assert ops.backend_names() == ("ref", "ell_cuda", "bsr", "landmark")
     for hw, want in (("cuda", "ell_cuda"), ("cpu", "ref")):
         info = ops.ProblemInfo(device_type=hw)
         assert [n for n in ops.backend_names() if ops.backend_spec(n).auto_eligible(info)] \

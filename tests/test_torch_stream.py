@@ -402,11 +402,12 @@ def test_constructor_validation_and_deferred_surface():
     with pytest.raises(ValueError, match="ingest_order"):
         _engine(g, ingest_order="random")
     with pytest.raises(ValueError, match="unknown backend"):
-        _engine(g, backend="landmark")
+        _engine(g, backend="ell_pallas")
     with pytest.raises(TypeError):
         _engine(g, mesh=object())
     eng = _engine(g)
-    # the read and persistence surface is ported; the mesh (above) is not
+    # the read, persistence and landmark surface is ported; the mesh
+    # (above) is not
     for name in ("device_view", "checkpoint", "checkpoint_state", "restore"):
         assert callable(getattr(eng, name)), name
     if not torch.cuda.is_available():
