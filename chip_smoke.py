@@ -258,6 +258,23 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
+def counted():
+    """Every kernel wrapper of the port, by the key its launches go under."""
+    return dict(ell=ell_propagate_step, argkmin=argkmin_candidates, bsr=bsr_spmv,
+                cc_step=cc_hook_step, cc_fixpoint=connected_components_cuda)
+
+
+def reset_launches():
+    """Set every wrapper's launch count to 0, just before a path runs."""
+    for fn in counted().values():
+        fn.launches = 0
+
+
+def read_launches():
+    """Every wrapper's launch count, read just after a path ran."""
+    return {key: fn.launches for key, fn in counted().items()}
+
+
 def sweep_bound(n, k, nf, rows):
     """The least time (ms) an H100 takes for one sweep whose frontier has
     ``rows`` rows, and what bounds it.  Bytes: F read once (4 Nf), frontier
@@ -725,7 +742,7 @@ def phase_main(vertices, batch_size):
     truth = np.zeros(vertices, np.int8)
     sweeps = 0
     views, per_batch = [], []
-    ell_propagate_step.launches = 0
+    reset_launches()
     try:
         for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
             base = g.num_nodes
@@ -744,10 +761,10 @@ def phase_main(vertices, batch_size):
             views.append(LabelView.from_graph(g, t + 1))
     finally:
         dynlp_module.run_propagation = run_propagation
-    launches = ell_propagate_step.launches
+    launches = read_launches()
     print(f"   sweeps={sweeps} kernel launches={launches}")
-    require(launches == sweeps and launches > 0,
-            f"launch count {launches} != sweeps {sweeps}")
+    require(launches["ell"] == sweeps and sweeps > 0,
+            f"launch count {launches['ell']} != sweeps {sweeps}")
 
     ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
     require(np.isfinite(g.f[ids]).all(), "non-finite labels")
@@ -887,9 +904,7 @@ def phase_stream(vertices, batch_size, prefix, backend=None):
     stream_module.ell_bsr_layout = layout_seen
     incremental_knn.argkmin_candidates = argkmin_timed
     ops_module.run_propagation = solve_timed
-    ell_propagate_step.launches = 0
-    argkmin_candidates.launches = 0
-    bsr_spmv.launches = 0
+    reset_launches()
     try:
         for t, (batch, cls) in enumerate(gaussian_mixture_stream(spec)):
             cur[0] = t
@@ -912,8 +927,7 @@ def phase_stream(vertices, batch_size, prefix, backend=None):
         stream_module.ell_bsr_layout = real_layout
         incremental_knn.argkmin_candidates = argkmin_candidates
         ops_module.run_propagation = run_propagation
-    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
-                    bsr=bsr_spmv.launches)
+    launches = read_launches()
     sweeps = sum(st.iterations for st in stats)
     print(f"   batches={len(stats)} with insertions={inserts}; sweeps={sweeps}; launches: "
           f"argkmin {launches['argkmin']}, sweep kernel {launches['ell']}, "
@@ -1185,9 +1199,7 @@ def phase_serve(eng3, vertices, batch_size, window_ops=250, readers=3, q=1024):
     batch, cls = batches[0]
     base = r.graph.num_nodes
     tickets, relabeled = [], []
-    ell_propagate_step.launches = 0
-    argkmin_candidates.launches = 0
-    bsr_spmv.launches = 0
+    reset_launches()
     incremental_knn.argkmin_candidates = argkmin_kept
     ops_module.ell_propagate_step = sweep_kept
     svc.start()
@@ -1217,8 +1229,7 @@ def phase_serve(eng3, vertices, batch_size, window_ops=250, readers=3, q=1024):
         th.join(60.0)
     require(not any(th.is_alive() for th in threads), "a reader did not stop")
     wall = time.perf_counter() - t_reads
-    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
-                    bsr=bsr_spmv.launches)
+    launches = read_launches()
     require(not errors, f"a read failed: {errors[:1]}")
     st = svc.stats()
     async_ckpts = st.checkpoints_written
@@ -1832,8 +1843,7 @@ def phase_baselines(vertices, batch_size, prefix):
     solve = {}
     itlp_module.propagate_full_ell = timed_sync(propagate_full_ell, solve, "itlp")
     stlp_module.harmonic_solve = timed_sync(harmonic_solve, solve, "stlp")
-    ell_propagate_step.launches = 0
-    argkmin_candidates.launches = 0
+    reset_launches()
     iters, dyn_iters = [], []
     try:
         for t, (batch, _) in enumerate(gaussian_mixture_stream(spec)):
@@ -1861,15 +1871,16 @@ def phase_baselines(vertices, batch_size, prefix):
     finally:
         itlp_module.propagate_full_ell = propagate_full_ell
         stlp_module.harmonic_solve = harmonic_solve
-    launches = ell_propagate_step.launches
+    launches = read_launches()
     fewer = [t for t, (i, d) in enumerate(zip(iters, dyn_iters)) if i <= d]
-    print(f"   sweep launches {launches} = ITLP iterations {sum(iters)}; argkmin "
-          f"{argkmin_candidates.launches}; graphs == path 1's after every batch; iterations "
-          f"over the stream ITLP {sum(iters)} vs DynLP {sum(dyn_iters)} "
-          f"({sum(iters) / sum(dyn_iters):.2f}x); batches where ITLP took no more: {fewer}")
-    require(launches == sum(iters), "sweep launches != ITLP's iterations")
+    print(f"   launches {launches}: sweep = ITLP iterations {sum(iters)}; graphs == path 1's "
+          f"after every batch; iterations over the stream ITLP {sum(iters)} vs DynLP "
+          f"{sum(dyn_iters)} ({sum(iters) / sum(dyn_iters):.2f}x); batches where ITLP took "
+          f"no more: {fewer}")
+    require(launches["ell"] == sum(iters), "sweep launches != ITLP's iterations")
     require(sum(iters) > sum(dyn_iters), "ITLP took no more iterations than DynLP")
-    require(argkmin_candidates.launches == 0, "a baseline launched argkmin")
+    require(all(n == 0 for key, n in launches.items() if key != "ell"),
+            "a baseline launched a kernel other than the sweep")
     return dict(launches=launches)
 
 
@@ -1880,13 +1891,15 @@ def phase_itlp_full(ell_last, graph3):
     STLP on the same graph must refuse the dense solve."""
     p, f0, fr, kw = ell_last["problem"], ell_last["f0"], ell_last["frontier0"], ell_last["kw"]
     half = torch.full_like(f0, 0.5)
-    ell_propagate_step.launches = 0
+    reset_launches()
     res = propagate_full_ell(p, half, delta=DELTA)
-    launches = ell_propagate_step.launches
+    launches = read_launches()
     plain = propagate_full(p, half, delta=DELTA)
     same = torch.equal(res.f.view(torch.int32), plain.f.view(torch.int32))
-    require(res.converged and launches == res.iterations == plain.iterations and same,
+    require(res.converged and launches["ell"] == res.iterations == plain.iterations and same,
             "full-size ITLP: kernel loop != propagate_full, or launches != iterations")
+    require(all(n == 0 for key, n in launches.items() if key != "ell"),
+            "full-size ITLP launched a kernel other than the sweep")
     itlp_ms = _wall_ms(lambda: propagate_full_ell(p, half, delta=DELTA))
     dyn_ms = _wall_ms(lambda: run_propagation(p, f0, fr, backend="ell_cuda", **kw))
     dyn_it = ell_last["res"].iterations
@@ -1935,9 +1948,7 @@ def drive_subbatches(eng, subs):
         return res
 
     ops_module.run_propagation = solve_timed
-    ell_propagate_step.launches = 0
-    argkmin_candidates.launches = 0
-    bsr_spmv.launches = 0
+    reset_launches()
     try:
         for sb in subs:
             t0 = time.perf_counter()
@@ -1948,8 +1959,7 @@ def drive_subbatches(eng, subs):
         stats.append(eng.drain())
     finally:
         ops_module.run_propagation = run_propagation
-    launches = dict(ell=ell_propagate_step.launches, argkmin=argkmin_candidates.launches,
-                    bsr=bsr_spmv.launches)
+    launches = read_launches()
     require(len(stats) == len(subs) == len(solves), "a sub-batch did not solve")
     require(all(st.converged for st in stats), "a sub-batch did not converge")
     return stats, submit_ms, solves, launches
@@ -2054,7 +2064,9 @@ def phase_landmark(vertices, batch_size, parts=10):
     require(llaunch["ell"] == lsweeps and elaunch["ell"] == esweeps,
             "sweep launches != sweeps")
     require(elaunch["argkmin"] == inserting, "exact argkmin launches != insertions")
-    require(llaunch["bsr"] == elaunch["bsr"] == 0, "path 6 launched the SpMV")
+    require(all(c[key] == 0 for c in (llaunch, elaunch)
+                for key in ("bsr", "cc_step", "cc_fixpoint")),
+            "path 6 launched the SpMV or a cc kernel")
     ak_err = max(check_argkmin(f"path-6 assignment chunk {i}", inp,
                                show=i in (0, len(kept) - 1))
                  for i, inp in enumerate(kept))
@@ -2135,14 +2147,19 @@ def main(argv=None) -> int:
         full5 = phase_itlp_full(ell_last, out3["engine"].graph)
     with Phase("path 6: StreamEngine(backend='landmark') on path 3's checkpoint"):
         out6 = phase_landmark(args.stream_vertices, args.batch)
+    # every kernel's launches as read on each path, for every path
+    paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
+                 path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
+                 path6=out6["launches"], path6_exact=out6["exact_launches"])
+
+    def per_path(key):
+        return {f"{name}_launches": counts[key] for name, counts in paths.items()}
+
     record = {"kernels": [{
         "name": "ell_propagate_step", "route": "cuda",
         "source": "src/repro_torch/csrc/ell_propagate.cu",
         "replaces": "src/repro/kernels/ell_propagate.py:58",
-        "launches": out2["launches"]["ell"], "path4_launches": out4["launches"]["ell"],
-        "path5_launches": out5["launches"], "path5_full_launches": full5["launches"],
-        "path6_launches": out6["launches"]["ell"],
-        "path6_exact_launches": out6["exact_launches"]["ell"],
+        "launches": out2["launches"]["ell"], **per_path("ell"),
         "max_abs_err": max(sweep_err, tm["max_abs_err"], out4["sweep_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -2150,9 +2167,7 @@ def main(argv=None) -> int:
         "name": "argkmin", "route": "cuda",
         "source": "src/repro_torch/csrc/argkmin.cu",
         "replaces": "src/repro/kernels/argkmin.py:117",
-        "launches": out3["launches"]["argkmin"], "path4_launches": out4["launches"]["argkmin"],
-        "path5_launches": 0, "path6_launches": out6["launches"]["argkmin"],
-        "path6_exact_launches": out6["exact_launches"]["argkmin"],
+        "launches": out3["launches"]["argkmin"], **per_path("argkmin"),
         "max_abs_err": max(argkmin_err, ta["max_abs_err"], out4["argkmin_err"],
                            out6["argkmin_err"]),
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
@@ -2161,8 +2176,8 @@ def main(argv=None) -> int:
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv.py:58",
-        "launches": out3["launches"]["bsr"], "path5_launches": 0,
-        "path6_launches": out6["launches"]["bsr"], "max_abs_err": max(bsr_err, tb["max_abs_err"]),
+        "launches": out3["launches"]["bsr"], **per_path("bsr"),
+        "max_abs_err": max(bsr_err, tb["max_abs_err"]),
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
     }, {
@@ -2171,7 +2186,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/cc_hook.py:34",
         # off the main paths: its launches in the step loop on path 3's
         # last snapshot (phase 7)
-        "launches": cc["step_launches"], "max_abs_err": max(cc_err, tc["max_abs_err"]),
+        "launches": cc["step_launches"], **per_path("cc_step"),
+        "max_abs_err": max(cc_err, tc["max_abs_err"]),
         "ms": tc["ms"], "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"], "library_ms": None,
     }, {
@@ -2179,24 +2195,16 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/cc_hook.cu",
         "replaces": "src/repro/kernels/cc_hook.py:60",
         # the cc entry point on path 3's last snapshot (phase 7)
-        "launches": cc["launches"], "max_abs_err": max(cc_err, tf["max_abs_err"]),
+        "launches": cc["launches"], **per_path("cc_fixpoint"),
+        "max_abs_err": max(cc_err, tf["max_abs_err"]),
         "ms": tf["ms"], "plain_ms": tf["plain_ms"], "bound_ms": tf["bound_ms"],
         "bound_by": tf["bound_by"], "library_ms": None,
         **{key: tf[key] for key in ("call_ms", "step_loop_ms", "components_ms",
                                     "iterations", "blocks", "kept_groups")},
     }]}
-    print(f"   launches: path 1 (DynLP) {dyn_launches} sweep kernel; path 2 (engine, ell_cuda) "
-          f"{out2['launches']['ell']} sweep kernel, {out2['launches']['argkmin']} argkmin; "
-          f"path 3 (engine, bsr) {out3['launches']['bsr']} SpMV, "
-          f"{out3['launches']['argkmin']} argkmin; path 4 (service, ell_cuda) "
-          f"{out4['launches']['ell']} sweep kernel, {out4['launches']['argkmin']} argkmin over "
-          f"{out4['windows']} windows; path 5 (ITLP) {out5['launches']} sweep kernel at "
-          f"{args.vertices} vertices, {full5['launches']} at full size; path 6 (landmark) "
-          f"{out6['launches']['argkmin']} argkmin ({out6['chunks']} assignment chunks), "
-          f"{out6['launches']['ell']} sweep kernel, its exact twin "
-          f"{out6['exact_launches']['argkmin']} argkmin, {out6['exact_launches']['ell']} sweep "
-          f"kernel; cc entry point {cc['launches']} fixpoint "
-          f"({cc['iterations']} steps), its step loop {cc['step_launches']} hook steps")
+    print(f"   launches read on each path: {json.dumps(paths)}; the cc entry point on path "
+          f"3's last snapshot {cc['launches']} fixpoint ({cc['iterations']} steps), its step "
+          f"loop {cc['step_launches']} hook steps; path 6's {out6['chunks']} assignment chunks")
     print(f"   total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(card_line())

@@ -3,11 +3,10 @@
 
 Counterpart of ``repro.core.itlp``.  After every Δ_t the labels of *all*
 unlabeled vertices are recomputed: uniform 0.5 initialization, dense (no
-frontier) iteration until the global max |ΔF| falls to δ.  On a CUDA device
-the iteration runs through the fused sweep kernel
-(``kernels.ops.propagate_full_ell``); on the CPU it is the plain
-``core.propagate.propagate_full``.  The two give the same bits and the same
-iteration count.
+frontier) iteration until the global max |ΔF| falls to δ.  The iteration
+runs through the fused sweep kernel (``kernels.ops.propagate_full_ell``),
+which on CPU tensors takes the kernel's plain version and gives the plain
+``core.propagate.propagate_full``'s bits and iteration count.
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ import time
 
 import torch
 
-from repro_torch.core.propagate import propagate_full
 from repro_torch.core.snapshot import build_problem
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import BatchUpdate, DynamicGraph
@@ -57,8 +55,7 @@ class ITLP:
                              device=self.device)
         f0 = torch.full((snap.problem.num_unlabeled,), 0.5, dtype=torch.float32,
                         device=self.device)
-        solve = propagate_full_ell if self.device.type == "cuda" else propagate_full
-        res = solve(snap.problem, f0, delta=self.delta, max_iters=self.max_iters)
+        res = propagate_full_ell(snap.problem, f0, delta=self.delta, max_iters=self.max_iters)
         g.f[snap.unl_ids] = res.f[: len(snap.unl_ids)].cpu().numpy()
         return ITLPStats(
             iterations=res.iterations,
