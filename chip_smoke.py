@@ -37,7 +37,12 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``propagate_full_ell`` against ``propagate_full`` (F bitwise and the
    iteration count, launches = iterations) on a seeded problem and on a
    kNN snapshot with padding rows; ``harmonic_solve`` on the card within
-   1e-4 of the CPU's.
+   1e-4 of the CPU's.  For the mesh: argkmin at a global row offset
+   ``row0`` on a 131,072-row store cut 8 ways (a shard whose block holds
+   ``base_id``, one below it, one above it; duplicates tied across two
+   shards), each launch bitwise to its plain version, and ``shard_sweep``'s
+   merged lists and mask (one launch a shard) bitwise to one unsharded
+   launch.
 3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
    over a ``gaussian_mixture_stream`` of 5,000-vertex batches under the
    paper's 90/1/9 protocol (``--vertices``, 20,000 by default).  The sweep
@@ -127,6 +132,33 @@ Phases (each prints its lines and its seconds; any failed check raises):
    byte-identical.  It prints the activation refresh and cold-pass ms,
    submit and solve ms per sub-batch, hot and exact rung rows and the cold
    rows served.
+11. Path 7, the mesh, at 100,000 vertices: path 3's checkpoint restored onto
+   ``DeviceMesh.local(8)`` (eight shards on the card, each with its rows of
+   the store and of every problem; an elastic 1 → 8 restore) five times,
+   each fed path 6's 10 sub-batches pipelined: ``ell_cuda`` with
+   ``transport="allgather"`` (a) and ``"halo"`` (b), ``backend="bsr"``
+   under both (c), ``backend="landmark"`` with path 6's configuration (d).
+   After every sub-batch (a) and (b) equal path 6's exact engine bitwise,
+   (c) equals itself across transports, (d) equals path 6's landmark
+   engine; the graphs equal path 6's byte for byte; sweep or SpMV launches
+   are 8 a sweep, argkmin launches 8 an inserting sub-batch plus the
+   landmark chunks.  (c) lies within 2e-3 of (a) (held at the full
+   100,000 vertices; a reduced ``--stream-vertices`` run prints it), with
+   the same predictions where (a) is more than 20·δ from 0.5, and the
+   mesh's bsr and ell_cuda bodies compute the same iteration (within 1e-5
+   over 30 sweeps with every row on).  Some of (c)'s per-shard SpMV
+   launches keep their inputs (global block columns into the gathered
+   F), each held bitwise to its plain version.  It prints, with the
+   card's name and power limit, each engine's sweeps, solve ms and µs a
+   sweep at the last sub-batch, the bytes each transport copied a sweep,
+   the export fraction, halo batches and overflows, the ``auto:measured``
+   probe's two times on the last snapshot and each shard's argkmin ms.
+   Then (a)'s checkpoint restored onto no mesh (8 → 1): graph and store
+   byte-identical, every answer equal.
+12. Path 7b: a fresh 8-shard engine with ``ingest_order="locality"`` and
+   ``transport="halo"`` over path 1's first two batches (10,000 vertices),
+   beside a single-device engine with the same order: graphs and labels
+   bitwise after each batch, at least one batch on the halo collective.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -159,8 +191,10 @@ from repro_torch.core import dynlp as dynlp_module  # noqa: E402
 from repro_torch.core import itlp as itlp_module  # noqa: E402
 from repro_torch.core import stlp as stlp_module  # noqa: E402
 from repro_torch.core import stream as stream_module  # noqa: E402
+from repro_torch.core import distributed as distributed_module  # noqa: E402
+from repro_torch.core.distributed import DeviceMesh, build_stream_plan  # noqa: E402
 from repro_torch.core.components import connected_components, host_components  # noqa: E402
-from repro_torch.core.snapshot import LabelView  # noqa: E402
+from repro_torch.core.snapshot import LabelView, apply_halo_layout, build_host_problem  # noqa: E402
 from repro_torch.core.dynlp import DynLP  # noqa: E402
 from repro_torch.core.itlp import ITLP  # noqa: E402
 from repro_torch.core.propagate import PropagationProblem, propagate_full  # noqa: E402
@@ -171,13 +205,16 @@ from repro_torch.core.init_labels import supernode_init  # noqa: E402
 from repro_torch.data.synth import StreamSpec, accuracy, gaussian_mixture_stream  # noqa: E402
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph  # noqa: E402
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
+from repro_torch.graph import partition  # noqa: E402
 from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E402
 from repro_torch.ingest import incremental_knn  # noqa: E402
 from repro_torch.kernels._build import load_library, ptxas_report  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
+from repro_torch.kernels import argkmin as argkmin_module  # noqa: E402
 from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_geometry,  # noqa: E402
-                                         argkmin_launch, argkmin_ref, resident_blocks)
-from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref  # noqa: E402
+                                         argkmin_launch, argkmin_ref, resident_blocks,
+                                         shard_sweep)
+from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref, ell_bsr_layout  # noqa: E402
 from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,  # noqa: E402
                                          connected_components_cuda,
                                          connected_components_ref)
@@ -194,6 +231,8 @@ from tools.gpu_timing import QueueError, enqueue, gpu_times  # noqa: E402
 DELTA = 1e-4
 TOL = 20 * DELTA  # port vs port across backends/devices (the reference's own bound)
 BSR_ATOL = 2e-3  # a bsr stream against an ELL one (the reference's test bound)
+STREAM_VERTICES = 100_000  # paths 3, 4, 6 and 7 at full size
+BSR_KEEP_EVERY = 997  # path 7 keeps the inputs of every 997th mesh SpMV (and the first 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -633,6 +672,7 @@ def phase_kernels():
         argkmin_errs.append(check_argkmin("C < one split, M % 128 != 0",
                                           argkmin_inputs(rng, c_, d_, m_, c_),
                                           topk=min(13, c_)))
+    argkmin_errs.append(check_row0_cases(np.random.default_rng(13)))
     inp = cases[2][1]  # every old valid row has an empty slot: all displaced
     old = inp["args"][1] & (torch.arange(1024, device="cuda") < inp["base"])
     require(torch.equal(argkmin_candidates(*inp["args"], inp["base"], inp["slack"],
@@ -1336,7 +1376,7 @@ def phase_serve(eng3, vertices, batch_size, window_ops=250, readers=3, q=1024):
         clf.partial_fit(b.ins_emb, b.ins_labels)
     acc = clf.score(parts[4][0].ins_emb, parts[4][1])
     est_ms = (time.perf_counter() - t0) * 1e3
-    require(clf.engine_.device.type == "cuda" and clf.engine_._read_stream is not None,
+    require(clf.engine_.device.type == "cuda" and clf.engine_._read_streams,
             "the estimator is not on the card")
     require(argkmin_candidates.launches > a0 and ell_propagate_step.launches > s0,
             "the estimator did not launch the kernels")
@@ -1934,16 +1974,18 @@ def split_batch(batch, parts):
             for i, d in zip(ins, dels)]
 
 
-def drive_subbatches(eng, subs):
+def drive_subbatches(eng, subs, views=None):
     """Submit ``subs`` pipelined (batch t+1 before batch t is drained) and
-    return their stats, submit times and solve times, with the launches."""
+    return their stats, submit times and solve times, with the launches.
+    ``views`` collects the committed view of every commit, in order."""
     solves, submit_ms, stats = [], [], []
 
     def solve_timed(problem, f0, frontier0, **kw):  # on the engine's solve thread
         t0 = time.perf_counter()
         res = run_propagation(problem, f0, frontier0, **kw)
-        if kw.get("stream") is not None:
-            kw["stream"].synchronize()
+        # the solve's stream: the engine's side stream, passed in or (on a
+        # mesh) entered as this thread's current stream
+        (kw.get("stream") or torch.cuda.current_stream()).synchronize()
         solves.append((time.perf_counter() - t0) * 1e3)
         return res
 
@@ -1956,7 +1998,11 @@ def drive_subbatches(eng, subs):
             submit_ms.append((time.perf_counter() - t0) * 1e3)
             if prev is not None:
                 stats.append(prev)
+                if views is not None:
+                    views.append(eng.committed_view())
         stats.append(eng.drain())
+        if views is not None:
+            views.append(eng.committed_view())
     finally:
         ops_module.run_propagation = run_propagation
     launches = read_launches()
@@ -2014,12 +2060,13 @@ def phase_landmark(vertices, batch_size, parts=10):
 
     state.refresh, state.cold_values = refresh, cold_values
     landmark_module.argkmin_candidates = argkmin_kept
+    lviews, eviews = [], []  # every commit's view, for path 7
     try:
-        lst, lsub, lsolve, llaunch = drive_subbatches(lm, subs)
+        lst, lsub, lsolve, llaunch = drive_subbatches(lm, subs, lviews)
     finally:
         landmark_module.argkmin_candidates = argkmin_candidates
         del state.refresh, state.cold_values
-    est, esub, esolve, elaunch = drive_subbatches(ex, subs)
+    est, esub, esolve, elaunch = drive_subbatches(ex, subs, eviews)
 
     summary = lm.transport_summary()["landmark"]
     chunks = state.assign_chunks
@@ -2093,9 +2140,369 @@ def phase_landmark(vertices, batch_size, parts=10):
           f"factorization, clock and {len(pid)} answers byte-identical")
     for e in (lm, ex, r):
         e.close()
-    shutil.rmtree(root, ignore_errors=True)
     return dict(launches=llaunch, exact_launches=elaunch, argkmin_err=ak_err,
-                chunks=chunks, agree_hot=agree_hot)
+                chunks=chunks, agree_hot=agree_hot, subs=subs, inserting=inserting, cfg=cfg,
+                landmark=lm, exact=ex, landmark_views=lviews, exact_views=eviews,
+                exact_stats=est, exact_solve_ms=esolve)
+
+
+# --------------------------------------------------------------------- #
+# the mesh (phase 2's row0 cases, paths 7 and 7b)
+# --------------------------------------------------------------------- #
+SHARDS = 8  # path 7's mesh: DeviceMesh.local(8), eight shards on the card
+
+
+def same_bits(got, want):
+    """Values (as bits), ids and masks of two argkmin results equal."""
+    return all(torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
+               for g, w in zip(got, want))
+
+
+def check_row0(name, args, base, slack, row0, topk=13):
+    """argkmin on one store block at global offset ``row0`` against its
+    plain version, bitwise; returns the max |Δval| (0 when bitwise)."""
+    got = argkmin_launch(*args, base, slack, topk=topk, row0=row0)
+    want = argkmin_ref(*args, base, slack, topk=topk, row0=row0)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(got[0])
+    ids = got[1][fin]
+    same = same_bits(got, want)
+    print(f"   argkmin row0 {name:<44} C={args[0].shape[0]:<6} row0={row0:<7} "
+          f"base_id={base:<7} bitwise={same} ids in [row0, row0+C): "
+          f"{bool(((ids >= row0) & (ids < row0 + args[0].shape[0])).all())} "
+          f"disp={int(got[2].sum())}")
+    require(same, f"argkmin row0 {name}: kernel != plain version")
+    return 0.0
+
+
+def check_shard_sweep(name, args, base, slack, topk=13, shards=SHARDS):
+    """The sharded sweep (one launch a shard at its row0, lists merged)
+    against one unsharded launch on the same store: values, ids and mask
+    equal; every shard's launch against its plain version too."""
+    store, valid, kth, batch, bvalid = args
+    cut = [tuple(t.view(shards, -1, *t.shape[1:]).unbind(0)) for t in (store, valid, kth)]
+    before = argkmin_candidates.launches
+    got = shard_sweep(*cut, (batch,) * shards, (bvalid,) * shards, base, slack, topk=topk)
+    launches = argkmin_candidates.launches - before
+    whole = argkmin_launch(*args, base, slack, topk=topk)
+    torch.cuda.synchronize()
+    same = same_bits(got, whole)
+    c_loc = store.shape[0] // shards
+    for sh in range(shards):
+        part = [cut[0][sh], cut[1][sh], cut[2][sh], batch, bvalid]
+        one = argkmin_launch(*part, base, slack, topk=min(topk, c_loc), row0=sh * c_loc)
+        ref = argkmin_ref(*part, base, slack, topk=min(topk, c_loc), row0=sh * c_loc)
+        require(same_bits(one, ref), f"shard sweep {name}: shard {sh} != its plain version")
+    print(f"   shard_sweep {name:<40} {shards} shards of {c_loc} rows: {launches} launches; "
+          f"merged == one unsharded launch (values, ids, mask): {same}; every shard == its "
+          "plain version")
+    require(same and launches == shards, f"shard sweep {name}: merged != unsharded launch")
+    return 0.0
+
+
+def check_row0_cases(rng):
+    """Phase 2's argkmin cases at a global row offset: the main path's last
+    call (C = 131,072, D = 16, M = 8,192, base_id = 95,000) cut 8 ways, a
+    shard at a boundary whose block holds base_id, lies below it or above
+    it (holding the batch's tail); then duplicates of a batch row tied
+    across the boundary of shards 1 and 2.  Each launch gives its plain
+    version's bits; the sharded sweep gives one unsharded launch's."""
+    c, d, m = 131072, 16, 8192
+    inp = argkmin_inputs(rng, c, d, m, 103192, real=5000)
+    args, base, slack = inp["args"], inp["base"], inp["slack"]
+    c_loc = c // SHARDS
+    errs = []
+    for sh, what in ((5, "base_id inside the block"), (2, "the block below base_id"),
+                     (6, "the block above base_id, the batch's tail in it")):
+        lo = sh * c_loc
+        blk = [t[lo:lo + c_loc] for t in args[:3]] + args[3:]
+        errs.append(check_row0(f"shard {sh}: {what}", blk, base, slack, lo))
+    errs.append(check_shard_sweep("the main path's last call", args, base, slack))
+    tied = [t.clone() for t in args]
+    lo, hi = c_loc - 700, c_loc + 700  # rows either side of shards 1 and 2's boundary
+    tied[0][lo:hi] = tied[3][0]
+    tied[1][lo:hi] = True
+    tied[3][1:50] = tied[3][0]  # 50 batch rows tie with all of them
+    for sh in (1, 2):
+        blk = [t[sh * c_loc:(sh + 1) * c_loc] for t in tied[:3]] + tied[3:]
+        errs.append(check_row0(f"shard {sh}: duplicates tied across two shards", blk, base,
+                               slack, sh * c_loc))
+    errs.append(check_shard_sweep("duplicates tied across shards 1 and 2", tied, base, slack))
+    return max(errs)
+
+
+def views_equal(a, b):
+    return all(getattr(a, k).tobytes() == getattr(b, k).tobytes()
+               for k in ("f", "labels", "alive"))
+
+
+def unl_gap(a, b):
+    """max |F_a − F_b| over the alive unlabeled rows of view ``a``."""
+    ids = np.flatnonzero(a.alive & (a.labels == UNLABELED))
+    return float(np.abs(a.f[ids] - b.f[ids]).max(initial=0.0))
+
+
+def time_shard_launches(kept):
+    """Device time (ms) of each shard's argkmin launch on the kept inputs of
+    the last sharded sweep, each held to its plain version first, and of
+    one launch over the whole store (the single-device call), whose lists
+    and mask the merged shards' must equal."""
+    (stores, valids, kths, batches, bvalids, base, slack), kw = kept
+    c_loc = stores[0].shape[0]
+    tk = min(kw["topk"], c_loc)
+    out = []
+    for sh in range(len(stores)):
+        part = (stores[sh], valids[sh], kths[sh], batches[sh], bvalids[sh])
+        want = argkmin_ref(*part, base, slack, topk=tk, row0=sh * c_loc)
+        got = argkmin_launch(*part, base, slack, topk=tk, row0=sh * c_loc)
+        require(same_bits(got, want), f"path 7 shard {sh}'s argkmin != its plain version")
+        out.append(statistics.median(gpu_times(
+            [lambda p=part, r=sh * c_loc: argkmin_launch(*p, base, slack, topk=tk, row0=r)] * 5,
+            per_sleep=5)))
+    whole = [torch.cat(x) for x in (stores, valids, kths)] + [batches[0], bvalids[0]]
+    merged = shard_sweep(stores, valids, kths, batches, bvalids, base, slack, topk=kw["topk"])
+    require(same_bits(merged, argkmin_launch(*whole, base, slack, topk=kw["topk"])),
+            "path 7: the merged shard lists != one launch over the whole store")
+    whole_ms = statistics.median(gpu_times(
+        [lambda: argkmin_launch(*whole, base, slack, topk=kw["topk"])] * 5, per_sleep=5))
+    return out, whole_ms
+
+
+def phase_mesh(out6, full):
+    """Path 7: path 3's checkpoint restored onto ``DeviceMesh.local(8)``
+    (eight shards on the card; an elastic 1 → 8 restore with the sharded
+    store) five times, each fed path 6's 10 sub-batches, pipelined:
+    ``ell_cuda`` on all-gather and on halo, ``bsr`` on both, and the
+    landmark backend with path 6's configuration.  Held after every
+    sub-batch: the ell engines' committed views equal path 6's exact
+    engine's bit for bit, the bsr engines' equal each other, the landmark
+    engine's equal path 6's landmark engine's; the graphs equal path 6's
+    byte for byte; launches read: the sweep or the SpMV 8 times a sweep,
+    argkmin 8 times an inserting sub-batch (plus the landmark chunks).
+    The bsr engines' δ-stopped labels lie within 2e-3 of the ell
+    engine's at the full ``STREAM_VERTICES`` (a reduced
+    ``--stream-vertices`` run prints the gap and does not hold it: two
+    δ-stopped solves of a smaller, less settled graph can lie further
+    apart), with the same hard predictions where the ell engine's label is
+    more than 20·δ from the cutoff, and the mesh's bsr and ell bodies
+    compute the same iteration (30 sweeps with every row on, within 1e-5).
+    The first 8 and every ``BSR_KEEP_EVERY``-th per-shard SpMV launch of
+    the two bsr engines keep their inputs; each is held bitwise to
+    ``bsr_spmv_ref`` after the run.  Then engine (a)'s checkpoint restored
+    onto no mesh (8 → 1): byte-identical, the same answers."""
+    root = REPO / "build" / "path4"
+    mesh = DeviceMesh.local(SHARDS)
+    subs, inserting, cfg = out6["subs"], out6["inserting"], out6["cfg"]
+    kept, kept_spmv, spmv_seen = [], [], [0]
+    real_sweep = argkmin_module.shard_sweep
+
+    def sweep_kept(*a, **kw):  # the inputs of the last sharded sweep, copied
+        kept[:] = [(tuple(tuple(t.clone() for t in x) if isinstance(x, tuple) else x
+                          for x in a), kw)]
+        return real_sweep(*a, **kw)
+
+    def spmv_kept(*a):  # a per-shard SpMV of a mesh bsr engine, its inputs copied
+        if spmv_seen[0] < SHARDS or spmv_seen[0] % BSR_KEEP_EVERY == 0:
+            kept_spmv.append(tuple(t.clone() for t in a))
+        spmv_seen[0] += 1
+        return bsr_spmv(*a)
+
+    runs = (("allgather", dict(backend=None, transport="allgather")),
+            ("halo", dict(backend=None, transport="halo")),
+            ("bsr_allgather", dict(backend="bsr", transport="allgather")),
+            ("bsr_halo", dict(backend="bsr", transport="halo")),
+            ("landmark", dict(backend="landmark", landmark=cfg)))
+    out = {}
+    argkmin_module.shard_sweep = sweep_kept
+    try:
+        for name, kw in runs:
+            spmv_seen[0] = 0
+            distributed_module.bsr_spmv = spmv_kept if kw.get("backend") == "bsr" else bsr_spmv
+            t0 = time.perf_counter()
+            eng = StreamEngine.restore(str(root / "path3"), mesh=mesh, **kw)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            require(eng.mesh == mesh and eng.ingestor.store.n_shards == SHARDS
+                    and eng.ingestor.store.emb_s[0].is_cuda, f"path 7 {name}: not sharded")
+            views = []
+            stats, sub_ms, solve_ms, launches = drive_subbatches(eng, subs, views)
+            out[name] = dict(eng=eng, stats=stats, sub_ms=sub_ms, solve_ms=solve_ms,
+                             launches=launches, views=views, restore_ms=restore_ms,
+                             kept=kept[0] if name == "allgather" else None)
+    finally:
+        argkmin_module.shard_sweep = real_sweep
+        distributed_module.bsr_spmv = bsr_spmv
+
+    exact, lmk = out6["exact"], out6["landmark"]
+    for name, o in out.items():
+        eng, stats, launches = o["eng"], o["stats"], o["launches"]
+        ell_sweeps = sum(s.iterations for s in stats if s.backend in ("ell_cuda", "landmark"))
+        bsr_sweeps = sum(s.iterations for s in stats if s.backend == "bsr")
+        chunks = eng._lm.assign_chunks if name == "landmark" else 0
+        summ = eng.transport_summary()
+        print(f"   path 7 {name}: restore {o['restore_ms']:.1f} ms; per sub-batch submit "
+              f"{[round(x, 1) for x in o['sub_ms']]} ms, solve {[round(x, 1) for x in o['solve_ms']]}"
+              f" ms, sweeps {[s.iterations for s in stats]}, transports "
+              f"{sorted({s.transport for s in stats})}, backends {sorted({s.backend for s in stats})}"
+              f"; launches {launches}; halo batches {summ['halo_batches']}, overflows "
+              f"{summ['overflows']}, rung modes {summ['rung_modes']}, export budgets "
+              f"{summ['export_budgets']}", flush=True)
+        require(launches["ell"] == SHARDS * ell_sweeps and launches["bsr"] == SHARDS * bsr_sweeps,
+                f"path 7 {name}: sweep/SpMV launches != 8 x sweeps")
+        require(launches["argkmin"] == SHARDS * inserting + chunks,
+                f"path 7 {name}: argkmin launches != 8 x inserting sub-batches + chunks")
+        require(launches["cc_step"] == launches["cc_fixpoint"] == 0, f"path 7 {name}: cc launched")
+        if name in ("allgather", "halo"):
+            require(all(views_equal(v, w) for v, w in zip(o["views"], out6["exact_views"])),
+                    f"path 7 {name}: a committed view differs from path 6's exact engine")
+            require_same_graph(eng, exact, f"path 7 {name} vs path 6's exact engine")
+            require([s.iterations for s in stats] == [s.iterations for s in out6["exact_stats"]],
+                    f"path 7 {name}: sweeps differ from path 6's exact engine")
+        elif name == "landmark":
+            require(all(views_equal(v, w) for v, w in zip(o["views"], out6["landmark_views"])),
+                    "path 7 landmark: a committed view differs from path 6's landmark engine")
+            require_same_graph(eng, lmk, "path 7 landmark vs path 6's landmark engine")
+    require(all(views_equal(v, w) for v, w in zip(out["bsr_allgather"]["views"],
+                                                   out["bsr_halo"]["views"])),
+            "path 7 bsr: the two transports' views differ")
+    ell_views = out["allgather"]["views"]
+    gaps = [unl_gap(v, w) for v, w in zip(out["bsr_allgather"]["views"], ell_views)]
+    flips = 0
+    for v, w in zip(out["bsr_allgather"]["views"], ell_views):
+        ids = np.flatnonzero(w.alive & (w.labels == UNLABELED) & (np.abs(w.f - 0.5) > TOL))
+        flips += int(((v.f[ids] >= 0.5) != (w.f[ids] >= 0.5)).sum())
+    print(f"   path 7: (a) and (b) == path 6's exact engine after every sub-batch (F, labels, "
+          f"alive bitwise; graphs byte for byte); bsr all-gather == bsr halo bitwise; "
+          f"delta-stopped max|dF| of bsr vs (a) per sub-batch "
+          f"{[f'{g:.2e}' for g in gaps]} (held <= {BSR_ATOL:.0e}: {full}); predictions "
+          f"differing where (a) is > 20 delta from 0.5: {flips}; landmark == path 6's "
+          f"landmark engine bitwise")
+    require(flips == 0, "path 7 bsr: predictions differ from the ell engine's away from 0.5")
+    require(not full or max(gaps) <= BSR_ATOL, "path 7 bsr: beyond 2e-3 of the ell engine")
+    spmv_err = 0.0
+    for a in kept_spmv:
+        got, want = bsr_spmv(*a), bsr_spmv_ref(*a)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                "a path-7 mesh SpMV: kernel != plain version")
+        spmv_err = max(spmv_err, float((got - want).abs().max()) if got.numel() else 0.0)
+    blocks, cols, x = kept_spmv[0]
+    print(f"   path 7: {len(kept_spmv)} of the bsr engines' per-shard SpMVs, inputs kept "
+          f"during the run (R={blocks.shape[0]} block rows a shard, J={blocks.shape[1]}, "
+          f"global block columns into x of {x.shape[0]}): kernel == plain version bitwise")
+    c_eng = out["bsr_allgather"]["eng"]
+    host = build_host_problem(c_eng.graph, auto_bucket=True, row_multiple=SHARDS * 8,
+                              max_k=c_eng.max_k, warned=set())
+    staged = apply_halo_layout(host, partition.build_halo_plan(host.nbr, SHARDS))
+    bl = ell_bsr_layout(staged.nbr, 8)
+    fixed = dict(delta=0.0, max_iters=30)
+    pb = build_stream_plan(mesh, staged.bucket_key, backend="bsr", block_size=8,
+                           num_slots=bl.num_slots, **fixed)
+    pe = build_stream_plan(mesh, staged.bucket_key, backend="ell_cuda", **fixed)
+    prob = pb.put_problem(staged.nbr, staged.wgt, staged.wl0, staged.wl1, staged.valid)
+    f0 = pb.put_row(np.full(staged.bucket_key[0], 0.5, np.float32))
+    fr = pb.put_row(staged.valid)
+    rb, re_ = pb(prob, f0, fr, slot=pb.put_row(bl.slot)), pe(prob, f0, fr)
+    valid = torch.from_numpy(staged.valid).to(rb.f.device)
+    d_fix = float((rb.f - re_.f)[valid].abs().max())
+    print(f"   path 7: the mesh's bsr and ell_cuda bodies, 30 sweeps with every row on (delta "
+          f"= 0) on (c)'s last snapshot (U={staged.bucket_key[0]}, {bl.num_slots} tile slots): "
+          f"max|F bsr - F ell| = {d_fix:.2e} (bound 1e-05)")
+    require(rb.iterations == re_.iterations == 30 and d_fix <= 1e-5,
+            "path 7: the mesh's bsr and ell bodies compute different iterations")
+
+    # per transport at the last sub-batch, with the card's name and limit
+    card_info = card_line()
+    a = out["allgather"]["eng"]
+    host = build_host_problem(a.graph, auto_bucket=True, row_multiple=SHARDS, max_k=a.max_k,
+                              warned=set())
+    layout = partition.build_halo_plan(host.nbr, SHARDS)
+    budget = partition.export_budget(layout, len(host.unl_ids))
+    u = host.bucket_key[0]
+    probe = stream_module.measure_transports(mesh, apply_halo_layout(host, layout),
+                                             layout.export_max, backend="ell_cuda", delta=DELTA)
+    timing = {}
+    for name in ("allgather", "halo", "bsr_allgather", "bsr_halo", "landmark"):
+        o = out[name]
+        last = o["stats"][-1]
+        per = o["eng"].transport_summary()["transport_bytes_per_sweep"]
+        timing[name] = dict(sweeps=last.iterations, solve_ms=o["solve_ms"][-1],
+                            us_per_sweep=1e3 * o["solve_ms"][-1] / max(last.iterations, 1),
+                            transport=last.transport, bytes_per_sweep=per)
+        print(f"   path 7 {name} last sub-batch [{card_info}]: {last.iterations} sweeps, solve "
+              f"{o['solve_ms'][-1]:.1f} ms, {timing[name]['us_per_sweep']:.1f} us a sweep on "
+              f"{last.transport}; bytes copied a sweep (mean over the run) {per}")
+    shard_ms, whole_ms = time_shard_launches(out["allgather"]["kept"])
+    print(f"   path 7 probe [{card_info}]: one sweep of the last snapshot (U={u}, export max "
+          f"{layout.export_max}, budget {budget}, export fraction {budget * SHARDS / u:.3f} at "
+          f"the budget, {layout.export_max * SHARDS / u:.3f} at the max): all-gather "
+          f"{probe['allgather']:.4f} ms, halo {probe['halo']:.4f} ms; argkmin per shard at the "
+          f"last sub-batch (C/8={out['allgather']['kept'][0][0][0].shape[0]}, M="
+          f"{out['allgather']['kept'][0][3][0].shape[0]}) {[round(x, 4) for x in shard_ms]} ms "
+          f"(sum {sum(shard_ms):.4f} ms); one launch over the whole store {whole_ms:.4f} ms")
+
+    t0 = time.perf_counter()
+    a.checkpoint(str(root / "path7"))
+    r = StreamEngine.restore(str(root / "path7"))
+    ck_ms = (time.perf_counter() - t0) * 1e3
+    require(r.mesh is None and r.ingestor.store.n_shards == 1 and r.transport == a.transport,
+            "path 7: the 8 -> 1 restore")
+    require_same_state(r, a, "path 7 8 -> 1 restore")
+    pid = probe_ids(r.graph)
+    require_same_answers(r.device_view().query(pid), a.device_view().query(pid),
+                         "path 7 8 -> 1 restore")
+    print(f"   path 7: engine (a) checkpointed and restored onto no mesh in {ck_ms:.1f} ms: "
+          f"graph and store byte-identical, {len(pid)} answers equal")
+    for o in out.values():
+        o["eng"].close()
+    r.close()
+    return dict(launches={name: o["launches"] for name, o in out.items()}, timing=timing,
+                spmv_err=spmv_err,
+                probe=probe, shard_ms=shard_ms, whole_ms=whole_ms,
+                export_fraction=budget * SHARDS / u,
+                halo=out["halo"]["eng"].transport_summary(), card=card_info)
+
+
+def phase_mesh_halo(vertices, batch_size, n_batches=2):
+    """Path 7b: a fresh 8-shard engine with ``ingest_order="locality"`` and
+    ``transport="halo"`` over the first ``n_batches`` batches of path 1's
+    stream, beside a single-device engine with the same ingest order:
+    graphs and labels bit for bit after every batch, at least one batch on
+    the halo collective, launches 8 a sweep and 8 an inserting batch."""
+    spec = StreamSpec(total_vertices=vertices, batch_size=batch_size, seed=42, class_sep=6.0,
+                      noise=0.9)
+    batches = [b for b, _ in gaussian_mixture_stream(spec)][:n_batches]
+    single = StreamEngine(DynamicGraph(emb_dim=spec.emb_dim, k=5), delta=DELTA,
+                          ingest="device", ingest_order="locality")
+    eng = StreamEngine(DynamicGraph(emb_dim=spec.emb_dim, k=5), delta=DELTA, ingest="device",
+                       ingest_order="locality", mesh=DeviceMesh.local(SHARDS), transport="halo")
+    launches = {key: 0 for key in counted()}
+    for t, b in enumerate(batches):
+        single.step(b)
+        reset_launches()
+        t0 = time.perf_counter()
+        st = eng.step(b)
+        ms = (time.perf_counter() - t0) * 1e3
+        for key, n in read_launches().items():
+            launches[key] += n
+        require_same_graph(eng, single, f"path 7b batch {t}")
+        require(st.converged, f"path 7b batch {t} did not converge")
+        print(f"   path 7b batch {t}: {st.iterations} sweeps on {st.transport}, rung "
+              f"{st.bucket}, step {ms:.1f} ms; == the single-device engine", flush=True)
+    summ = eng.transport_summary()
+    sweeps = eng.transport_sweeps["halo"] + eng.transport_sweeps["allgather"]
+    host = build_host_problem(eng.graph, auto_bucket=True, row_multiple=SHARDS,
+                              max_k=eng.max_k, warned=set())
+    counts = partition.build_halo_plan(host.nbr, SHARDS).export_counts
+    print(f"   path 7b: halo batches {summ['halo_batches']}, overflows {summ['overflows']}, "
+          f"export budgets {summ['export_budgets']} (export counts of the last snapshot "
+          f"{counts.tolist()}, of {host.bucket_key[0] // SHARDS} rows a shard), bytes a sweep "
+          f"{summ['transport_bytes_per_sweep']}; launches {launches}")
+    require(summ["halo_batches"] >= 1, "path 7b: no batch ran the halo collective")
+    require(launches["ell"] == SHARDS * sweeps and launches["argkmin"] == SHARDS * len(batches),
+            "path 7b: launches != 8 x sweeps / 8 x batches")
+    eng.close()
+    single.close()
+    return dict(launches=launches, halo_batches=summ["halo_batches"])
 
 
 def main(argv=None) -> int:
@@ -2104,7 +2511,7 @@ def main(argv=None) -> int:
     # flagged-row merges of the host update take most of the run, so paths
     # 1 and 2 stop at 20,000 vertices; path 3 runs the full 100,000
     ap.add_argument("--vertices", type=int, default=20_000)
-    ap.add_argument("--stream-vertices", type=int, default=100_000)
+    ap.add_argument("--stream-vertices", type=int, default=STREAM_VERTICES)
     ap.add_argument("--batch", type=int, default=5_000)
     ap.add_argument("--save-sweeps", metavar="NPZ",
                     help="write the inputs of the timed sweeps there, for "
@@ -2147,10 +2554,17 @@ def main(argv=None) -> int:
         full5 = phase_itlp_full(ell_last, out3["engine"].graph)
     with Phase("path 6: StreamEngine(backend='landmark') on path 3's checkpoint"):
         out6 = phase_landmark(args.stream_vertices, args.batch)
+    with Phase("path 7: StreamEngine(mesh=DeviceMesh.local(8)) on path 3's checkpoint"):
+        out7 = phase_mesh(out6, args.stream_vertices >= STREAM_VERTICES)
+    shutil.rmtree(REPO / "build" / "path4", ignore_errors=True)
+    with Phase("path 7b: a fresh 8-shard halo engine, ingest_order='locality'"):
+        out7b = phase_mesh_halo(args.vertices, args.batch)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
-                 path6=out6["launches"], path6_exact=out6["exact_launches"])
+                 path6=out6["launches"], path6_exact=out6["exact_launches"],
+                 **{f"path7_{name}": n for name, n in out7["launches"].items()},
+                 path7b=out7b["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}
@@ -2163,6 +2577,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(sweep_err, tm["max_abs_err"], out4["sweep_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
+        "path7": {name: t for name, t in out7["timing"].items()},
+        "path7_probe_ms": out7["probe"],
     }, {
         "name": "argkmin", "route": "cuda",
         "source": "src/repro_torch/csrc/argkmin.cu",
@@ -2172,12 +2588,13 @@ def main(argv=None) -> int:
                            out6["argkmin_err"]),
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
         "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
+        "path7_shard_ms": out7["shard_ms"], "path7_whole_store_ms": out7["whole_ms"],
     }, {
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/csrc/bsr_spmv.cu",
         "replaces": "src/repro/kernels/bsr_spmv.py:58",
         "launches": out3["launches"]["bsr"], **per_path("bsr"),
-        "max_abs_err": max(bsr_err, tb["max_abs_err"]),
+        "max_abs_err": max(bsr_err, tb["max_abs_err"], out7["spmv_err"]),
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
     }, {

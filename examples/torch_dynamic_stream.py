@@ -3,8 +3,7 @@
     PYTHONPATH=src python examples/torch_dynamic_stream.py               # on the GPU
     PYTHONPATH=src python examples/torch_dynamic_stream.py --device cpu
 
-The port of parts 1-3 of ``examples/dynamic_stream.py`` (part 4, the mesh,
-waits for the port's multi-device engine):
+The port of ``examples/dynamic_stream.py``:
 
 1. Deletion semantics through ``StreamEngine``: a hostile cluster flips
    labels in its neighborhood; deleting it restores them, and each batch
@@ -12,17 +11,24 @@ waits for the port's multi-device engine):
 2. 30 batches through ``submit``/``drain`` (host staging of batch t+1
    overlaps the solve of batch t), with the rung allocations against the
    batch count: the bucket ladder keeps them logarithmic.
-3. The backend registry: the same stream through the default backend and
-   through ``backend="bsr"`` (the aggregation as a block-sparse product),
-   with each engine's per-rung decisions and slot budgets.  (The
-   reference's ``REPRO_BACKEND`` hint is not ported.)
+3. The backend registry: the same stream through the default backend,
+   through ``backend="bsr"`` (the aggregation as a block-sparse product)
+   and through the fleet-wide ``REPRO_BACKEND=bsr`` hint, with each
+   engine's per-rung decisions and slot budgets.
+4. The mesh: the same stream through ``StreamEngine(mesh=DeviceMesh.local(8,
+   device))``, eight shards on the one device, beside the single-device
+   engine: labels bit-identical, one partition plan per ladder rung.  The
+   reference runs this part in a subprocess with 8 virtual devices; the
+   port's mesh needs no subprocess.
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
 
+from repro_torch.core.distributed import DeviceMesh
 from repro_torch.core.stream import StreamEngine
 from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
@@ -88,9 +94,19 @@ def backend_demo(device="cuda"):
     spec = StreamSpec(total_vertices=240, batch_size=80, seed=8, class_sep=6.0, noise=0.9)
     batches = [b for b, _ in gaussian_mixture_stream(spec)]
 
-    def drive(tag, backend=None):
+    def drive(tag, backend=None, env=None):
         g = DynamicGraph(emb_dim=spec.emb_dim, k=5)
-        eng = StreamEngine(g, delta=1e-3, backend=backend, device=device)
+        old = os.environ.get("REPRO_BACKEND")
+        if env is not None:  # the engine reads the hint once, here
+            os.environ["REPRO_BACKEND"] = env
+        try:
+            eng = StreamEngine(g, delta=1e-3, backend=backend, device=device)
+        finally:
+            if env is not None:
+                if old is None:
+                    del os.environ["REPRO_BACKEND"]
+                else:
+                    os.environ["REPRO_BACKEND"] = old
         stats = [eng.step(b) for b in batches]
         s = eng.transport_summary()
         print(f"  {tag}: per-Δ_t backends {[st.backend for st in stats]}")
@@ -102,17 +118,42 @@ def backend_demo(device="cuda"):
           f"auto resolves to {ops.select_backend('auto', device=device)} here)")
     f_auto = drive("auto (per-rung registry pick)")
     f_bsr = drive("explicit backend='bsr' (block-sparse product)", backend="bsr")
+    f_env = drive("env REPRO_BACKEND=bsr (fleet-wide hint)", env="bsr")
     diff = float(np.abs(f_bsr - f_auto).max())
     print(f"  max |Δf| bsr vs auto: {diff:.2e} (allclose contract; bsr sums edges "
           "in tile order)\n")
     assert diff < 20 * 1e-3  # 20·δ, the reference's bound between its backends
+    assert np.array_equal(f_bsr, f_env)  # the hint == the explicit pick
     return diff
+
+
+def mesh_demo(device="cuda", vertices=1200, batch_size=60):
+    """The stream sharded over eight shards of one device, beside the
+    single-device engine: the same labels, bit for bit."""
+    spec = StreamSpec(total_vertices=vertices, batch_size=batch_size, seed=3, class_sep=6.0,
+                      noise=0.9, frac_deleted=0.15, frac_unlabeled=0.84)
+    mesh = DeviceMesh.local(8, device=device)
+    g_m = DynamicGraph(emb_dim=spec.emb_dim, k=5)
+    g_s = DynamicGraph(emb_dim=spec.emb_dim, k=5)
+    eng_m = StreamEngine(g_m, delta=1e-4, mesh=mesh)
+    eng_s = StreamEngine(g_s, delta=1e-4, device=device)
+    for batch, _ in gaussian_mixture_stream(spec):
+        eng_m.step(batch)
+        eng_s.step(batch)
+    assert np.array_equal(g_m.f, g_s.f)
+    s = eng_m.transport_summary()
+    print(f"{mesh.n_devices}-shard mesh on {mesh.device}: {eng_m.batches} batches, labels "
+          f"bit-identical to the single-device engine, {eng_m.plan_builds} partition plans "
+          f"for {len(eng_m.bucket_keys)} ladder rungs, rung transports {s['rung_modes']}, "
+          f"bytes copied a sweep {s['transport_bytes_per_sweep']}\n")
+    return eng_m.plan_builds, len(eng_m.bucket_keys)
 
 
 def main(device="cuda", vertices=1800, batch_size=60):
     deletion_demo(device)
     streaming_demo(device, vertices, batch_size)
     backend_demo(device)
+    mesh_demo(device)
 
 
 if __name__ == "__main__":

@@ -11,17 +11,18 @@ marker), so a restarted engine resumes bit-identically:
   * the ``EmbeddingStore`` contents and per-row k-th weights (device
     ingest), so the restored selector prunes exactly as before,
   * the commit/batch counters and the rung metadata (per-rung backends,
-    ``bsr`` slot budgets),
+    ``bsr`` slot budgets, transport modes, halo export budgets and the
+    ``auto:measured`` probe cache),
   * the ``landmark`` backend's factorization (landmark ids and rows, the
     assignment table) and its working-set clock and latch, so a restored
     hot/cold stream replays identically.
 
 Keys and meta are the reference's, so a checkpoint written by either
-package restores in the other.  Keys that have no meaning on one device
-hold what a mesh-less reference engine writes: ``mesh_devices`` 0,
-``transport`` "auto", empty transport and probe-cache entries.  ``platform``
-is the torch device type.  Not saved: device buffers and read views, which
-are rebuilt on demand.
+package restores in the other.  ``mesh_devices`` is the mesh's shard count
+(0 without a mesh); a mesh engine's checkpoint holds full host arrays (the
+sharded store's included), so it restores onto any mesh or none: the
+restores are elastic.  ``platform`` is the torch device type.  Not saved:
+device buffers and read views, which are rebuilt on demand.
 
 Checkpoints are commit-boundary snapshots: state taken with a batch in
 flight would mix batch t's host mutations with batch t-1's committed
@@ -36,11 +37,11 @@ import logging
 import numpy as np
 
 from repro_torch.checkpoint import manager
+from repro_torch.core.distributed import DeviceMesh
 from repro_torch.core.snapshot import LabelView
 from repro_torch.core.stream import StreamEngine
 from repro_torch.device import resolve_device
 from repro_torch.graph.dynamic import DynamicGraph
-from repro_torch.kernels import ops
 
 logger = logging.getLogger(__name__)
 
@@ -57,11 +58,6 @@ def _ingest_mode(engine: StreamEngine) -> str:
     if engine.ingestor is None:
         return "host"
     return "device" if hasattr(engine.ingestor, "store") else "custom"
-
-
-def _backend_knob(backend: str | None) -> str:
-    """The backend knob as the reference pins it ("auto", or the name)."""
-    return "auto" if backend in (None, "auto") else ops.backend_spec(backend).name
 
 
 def _by_rung(d: dict, cast=lambda v: v) -> dict:
@@ -95,9 +91,9 @@ def engine_state(engine: StreamEngine) -> dict:
         "block_rows": REFERENCE_BLOCK_ROWS,
         "interpret": None,
         "max_k": engine.max_k,  # resolved: int or None
-        "transport": "auto",
-        "mesh_devices": 0,
-        "backend_knob": _backend_knob(engine.backend),
+        "transport": engine.transport,
+        "mesh_devices": engine.mesh.n_devices if engine.mesh is not None else 0,
+        "backend_knob": engine._backend_knob,
         "backend_candidates": list(engine._backend_candidates),
         "ingest": _ingest_mode(engine),
         "ingest_order": engine.ingest_order,
@@ -106,22 +102,23 @@ def engine_state(engine: StreamEngine) -> dict:
         "batches": int(engine.batches),
         "bucket_keys": sorted([int(u), int(k)] for u, k in engine.bucket_keys),
         # per-rung metadata, keyed "UxK" (validity-scoped on restore)
-        "transport_modes": {},
-        "export_budgets": {},
+        "transport_modes": _by_rung(engine._transport_modes),
+        "export_budgets": _by_rung(engine._export_budgets, int),
         "backend_modes": _by_rung(engine._backend_modes),
         "slot_budgets": _by_rung(engine._slot_budgets, int),
-        "measured": {},
-        "halo_batches": 0,
-        "transport_overflows": 0,
+        # the auto:measured probe cache
+        "measured": _by_rung(engine._measured),
+        "halo_batches": int(engine.halo_batches),
+        "transport_overflows": int(engine.transport_overflows),
         "bsr_batches": int(engine.bsr_batches),
         "backend_overflows": int(engine.backend_overflows),
     }
     store = getattr(engine.ingestor, "store", None)
     if store is not None:
-        # one copy each, straight to the host: the live tensors, not
-        # ``store.state_arrays()``'s device clones
-        for k in ("emb", "valid", "kth"):
-            state[f"store_{k}"] = getattr(store, k).to("cpu", copy=True).numpy()
+        # one copy each, straight to the host, as full arrays whatever the
+        # mesh (a sharded store's shards concatenated)
+        for k, v in store.host_state().items():
+            state[f"store_{k}"] = v
         meta["store_count"] = int(store.count)
     lm = engine._lm
     if lm is not None:
@@ -155,6 +152,8 @@ def restore_engine(
     directory: str,
     step: int | None = None,
     *,
+    mesh: DeviceMesh | None = None,
+    transport: object = _UNSET,
     backend: object = _UNSET,
     max_k: object = _UNSET,
     read_placement: object = "auto",
@@ -163,16 +162,29 @@ def restore_engine(
     device=None,
 ) -> StreamEngine:
     """Rebuild a ``StreamEngine`` from the latest (or given) checkpoint, on
-    ``device`` (``None`` → ``cuda``).
+    ``device`` (``None`` → ``cuda``, or the mesh's first device).
 
-    Keyword overrides replace the checkpointed knobs.  A checkpoint of the
-    reference's restores here when its backend is one the port has, or
-    with ``backend=`` naming one.  The backend decisions and ``bsr`` slot
-    budgets reinstall only for a mesh-less checkpoint whose resolved knob
-    and candidate backends equal the new engine's (a ``bsr`` rung must stay
-    a ``bsr`` rung for replayed labels to stay bit-identical); otherwise
-    they are re-derived at rung entry, as on a fresh stream, and the labels
-    are the same either way.
+    Elastic: the checkpoint holds full host arrays, so ``mesh=`` is
+    whatever mesh is wanted now (none, the original, or another shard
+    count); buffers, plans and the sharded store re-stage onto it.
+    Keyword overrides replace the checkpointed knobs; a saved ``"halo"``
+    transport degrades to the auto default on a mesh-less restore.  A
+    checkpoint of the reference's restores here when its backend is one
+    the port has, or with ``backend=`` naming one.
+
+    Rung metadata reinstalls only where it stays valid, else it is
+    re-derived at rung entry as on a fresh stream (the labels are the same
+    either way):
+
+      * backend decisions and ``bsr`` slot budgets: the same shard count
+        and the same resolved knob and candidate backends (a ``bsr`` rung
+        must stay a ``bsr`` rung for replayed labels to stay
+        bit-identical);
+      * transport modes and export budgets: the same shard count and the
+        same transport knob, ``auto:measured`` excepted (it re-derives its
+        modes from the probe cache, so cache hits are seen);
+      * the ``auto:measured`` probe cache: the same shard count and the
+        same platform (the times are the hardware's).
 
     ``landmark`` defaults to the saved configuration.  The saved landmark
     state (factorization, working-set clock, latch, counters) reinstalls
@@ -180,7 +192,7 @@ def restore_engine(
     landmarks and ``assign_k``); another geometry starts a fresh
     factorization.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None or device is not None else mesh.device
     if step is None:
         step = manager.latest_step(directory)
         if step is None:
@@ -207,11 +219,16 @@ def restore_engine(
         # k-th pruning thresholds stay exact
         from repro_torch.ingest import DeviceIngestor
 
-        ingestor = DeviceIngestor(meta["emb_dim"], device=dev)
+        ingestor = DeviceIngestor(meta["emb_dim"], device=dev, mesh=mesh)
         ingestor.store.load_state_arrays(
             {"emb": state["store_emb"], "valid": state["store_valid"],
              "kth": state["store_kth"]}, count=meta["store_count"])
         ingest = ingestor
+
+    if transport is _UNSET:
+        transport = meta["transport"]
+        if transport == "halo" and mesh is None:
+            transport = None  # elastic: a mesh-less restore degrades to auto
 
     lm_meta = meta.get("landmark")
     if landmark is _UNSET:
@@ -231,6 +248,8 @@ def restore_engine(
         ingest_order=meta.get("ingest_order", "arrival"),
         read_placement=read_placement,
         landmark=landmark,
+        mesh=mesh,
+        transport=transport,
         device=dev,
     )
     if lm_meta is not None and engine._lm is not None:
@@ -255,13 +274,23 @@ def restore_engine(
     # device view answers exactly as the original's did
     engine._view = LabelView.from_graph(g, commit_id=engine.commits)
 
-    if (meta["mesh_devices"] == 0
-            and meta["backend_knob"] == _backend_knob(engine.backend)
+    n_dev = mesh.n_devices if mesh is not None else 0
+    same_mesh = meta["mesh_devices"] == n_dev
+    if (same_mesh and meta["backend_knob"] == engine._backend_knob
             and list(meta["backend_candidates"]) == list(engine._backend_candidates)):
         engine._backend_modes = _rungs(meta["backend_modes"])
         engine._slot_budgets = _rungs(meta["slot_budgets"], int)
         engine.bsr_batches = int(meta["bsr_batches"])
         engine.backend_overflows = int(meta["backend_overflows"])
-    logger.info("restored engine from %s step %d: %d nodes, %d commits, on %s",
-                directory, step, g.num_nodes, engine.commits, dev)
+    if (same_mesh and meta["transport"] == engine.transport
+            and engine.transport != "auto:measured"):
+        engine._transport_modes = _rungs(meta["transport_modes"])
+        engine._export_budgets = _rungs(meta["export_budgets"], int)
+        engine.halo_batches = int(meta["halo_batches"])
+        engine.transport_overflows = int(meta["transport_overflows"])
+    if same_mesh and meta["platform"] == engine.device.type:
+        engine._measured = _rungs(meta["measured"], dict)
+    logger.info("restored engine from %s step %d: %d nodes, %d commits, mesh %d -> %d "
+                "shards, %d cached probe rungs, on %s", directory, step, g.num_nodes,
+                engine.commits, meta["mesh_devices"], n_dev, len(engine._measured), dev)
     return engine

@@ -78,19 +78,24 @@ def _gather_labels(f: torch.Tensor, nbr: torch.Tensor) -> tuple[torch.Tensor, to
     return f[idx], mask
 
 
-def update_island(wgt, wl0, wl1, f, f_v, mask):
+def update_island(wgt, wl0, wl1, f, f_v, mask, wall=None):
     """The per-row Jacobi arithmetic, in the reference's op order.
 
     ``nbr_term = Σ_k wgt·(F_v − F_u)`` (masked lanes give 0) and
     ``Wall = Σ_k wgt + wl0 + wl1``, each summed in column order; then
     ``F' = F_u + (Wall > 0 ? ΔF / max(Wall, 1e-30) : 0)`` with
-    ``ΔF = (0 − F_u)·wl0 + (1 − F_u)·wl1 + nbr_term``.
+    ``ΔF = (0 − F_u)·wl0 + (1 − F_u)·wl1 + nbr_term``.  Each lane's
+    difference and product is one elementwise op over the (U, K) block
+    (each rounded on its own, as the per-column ops would be), then the
+    lanes are added in column order.  ``wall`` may be passed in, as
+    ``PropagationProblem.wall()`` computes it (it does not change across
+    sweeps).
     """
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
-    nbr_term = torch.zeros_like(f)
-    for j in range(wgt.shape[1]):
-        nbr_term = nbr_term + wgt[:, j] * torch.where(mask[:, j], f_v[:, j] - f, zero)
-    wall = _row_sum(wgt) + wl0 + wl1
+    lanes = wgt * torch.where(mask, f_v - f[:, None], zero)
+    nbr_term = _row_sum(lanes)
+    if wall is None:
+        wall = _row_sum(wgt) + wl0 + wl1
     d_f = (0.0 - f) * wl0 + (1.0 - f) * wl1 + nbr_term
     return f + torch.where(wall > 0, d_f / torch.clamp_min(wall, 1e-30), zero)
 
@@ -132,6 +137,7 @@ class PropagateResult(NamedTuple):
     iterations: int
     converged: bool
     max_residual: float  # max |ΔF| at the final iteration
+    transport_bytes: int = 0  # bytes a sharded solve's gathers copied (0 on one device)
 
 
 def _max_abs(x: torch.Tensor) -> torch.Tensor:

@@ -205,32 +205,90 @@ class DeviceLabelView:
         return pred_h.numpy()[:q].copy(), conf_h.numpy()[:q].copy()
 
 
-def publish_device_view(view: LabelView, placement=None,
-                        stream: torch.cuda.Stream | None = None) -> DeviceLabelView:
-    """Stage a committed ``LabelView`` on ``placement`` (a device; ``None``
-    → ``cuda``), called at drain by ``StreamEngine``.
+@dataclasses.dataclass(frozen=True)
+class ViewSharding:
+    """A row-sharded read placement: the committed view's node axis cut
+    into ``len(devices)`` contiguous blocks, block b on ``devices[b]``
+    (a device may repeat).  ``core.distributed.view_sharding`` builds one
+    block per distinct mesh device; with one block it is that device's
+    one view."""
 
-    On a CUDA device the padded arrays go through pinned memory as
-    asynchronous copies on ``stream`` (the engine's read stream, required
-    there), so publication returns without waiting for them and the copies
-    overlap the next batch's host work; reads on the same stream are
-    ordered after them."""
-    dev = resolve_device(placement)
+    devices: tuple[torch.device, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedDeviceLabelView:
+    """A committed view published as contiguous node blocks, one
+    ``DeviceLabelView`` each (``ViewSharding`` with more than one block).
+    A read gathers on every block's device and keeps, for each id, the
+    answer of the block that owns it; an id no block owns answers
+    UNLABELED at confidence 0, as ``LabelView.query`` does."""
+
+    blocks: tuple[DeviceLabelView, ...]
+    starts: tuple[int, ...]  # global id of each block's first node
+    num_nodes: int
+    commit_id: int
+    host: LabelView
+
+    def query(self, node_ids, cutoff=0.5) -> tuple[np.ndarray, np.ndarray]:
+        ids = np.asarray(node_ids, np.int64).reshape(-1)
+        q = len(ids)
+        pred = np.full(q, UNLABELED, np.int8)
+        conf = np.zeros(q, np.float32)
+        cut = np.broadcast_to(np.asarray(cutoff, np.float32).reshape(-1), (q,)) if q else 0.0
+        ends = self.starts[1:] + (self.num_nodes,)
+        for blk, lo, hi in zip(self.blocks, self.starts, ends):
+            own = (ids >= lo) & (ids < hi)
+            p, c = blk.query(np.where(own, ids - lo, -1), cut)
+            pred[own], conf[own] = p[own], c[own]
+        return pred, conf
+
+
+def _stage_view(view: LabelView, lo: int, hi: int, dev: torch.device,
+                stream) -> DeviceLabelView:
+    """Nodes ``[lo, hi)`` of ``view``, padded up the ``bucket`` ladder, as
+    one ``DeviceLabelView`` on ``dev``."""
     if dev.type == "cuda" and stream is None:
         raise ValueError("publish_device_view on a CUDA device needs the stream its "
                          "reads will run on")
-    n = view.num_nodes
+    n = hi - lo
     n_pad = bucket(max(n, 1))
     f = np.zeros(n_pad, np.float32)
     lab = np.full(n_pad, UNLABELED, np.int8)
     alive = np.zeros(n_pad, bool)
-    f[:n] = view.f
-    lab[:n] = view.labels
-    alive[:n] = view.alive
+    f[:n] = view.f[lo:hi]
+    lab[:n] = view.labels[lo:hi]
+    alive[:n] = view.alive[lo:hi]
     with torch.cuda.stream(stream):
         arrays = [_to_device(a, dev) for a in (f, lab, alive)]
     return DeviceLabelView(*arrays, num_nodes=n, commit_id=view.commit_id, host=view,
                            stream=stream)
+
+
+def publish_device_view(view: LabelView, placement=None, stream=None):
+    """Stage a committed ``LabelView`` on ``placement``, called at drain by
+    ``StreamEngine``.  ``placement`` is a device (``None`` → ``cuda``) or a
+    ``ViewSharding``.
+
+    On a CUDA device the padded arrays go through pinned memory as
+    asynchronous copies on the view's read stream (required there): the
+    ``stream`` given, or for a ``ViewSharding`` (or when ``stream`` is a
+    dict) ``stream[device]`` for each block's device.  Publication returns
+    without waiting for the copies, which overlap the next batch's host
+    work; reads on the same stream are ordered after them."""
+    n = view.num_nodes
+    blocks = placement.devices if isinstance(placement, ViewSharding) else (placement,)
+    devs = [resolve_device(d) for d in blocks]
+    streams = stream if isinstance(stream, dict) else {devs[0]: stream}
+    if len(devs) == 1:
+        return _stage_view(view, 0, n, devs[0], streams.get(devs[0]))
+    step = -(-n // len(devs))
+    starts = tuple(min(b * step, n) for b in range(len(devs)))
+    ends = starts[1:] + (n,)
+    return ShardedDeviceLabelView(
+        blocks=tuple(_stage_view(view, lo, hi, d, streams.get(d))
+                     for d, lo, hi in zip(devs, starts, ends)),
+        starts=starts, num_nodes=n, commit_id=view.commit_id, host=view)
 
 
 @dataclasses.dataclass
@@ -248,6 +306,28 @@ class HostSnapshot:
     @property
     def bucket_key(self) -> tuple[int, int]:
         return self.nbr.shape
+
+
+def apply_halo_layout(host: HostSnapshot, plan) -> HostSnapshot:
+    """Reorder a host snapshot's rows into a halo export-prefix layout.
+
+    ``plan`` is a ``graph.partition.HaloPlan`` built from THIS snapshot's
+    ``nbr`` (same padded row count): rows permute so every
+    cross-shard-referenced row leads its shard, and the plan's ``nbr`` is
+    already remapped.  Row order is invisible to the fixpoint (each row's
+    K-axis order is untouched and updates read neighbors by id), so the
+    permuted snapshot gives the same bits; callers keep ``plan.inv_perm``
+    to fold solved rows back.  ``unl_ids``/``remap`` stay in the original
+    row order.
+    """
+    if len(plan.perm) != len(host.valid):
+        raise ValueError(
+            f"halo plan rows {len(plan.perm)} != snapshot rows "
+            f"{len(host.valid)}; build the plan from this snapshot's nbr")
+    p = plan.perm
+    return HostSnapshot(
+        nbr=plan.nbr, wgt=host.wgt[p], wl0=host.wl0[p], wl1=host.wl1[p],
+        valid=host.valid[p], unl_ids=host.unl_ids, remap=host.remap)
 
 
 def reorder_host_snapshot(host: HostSnapshot,

@@ -1,6 +1,6 @@
-"""Streaming engine for dynamic batch updates, single device.
+"""Streaming engine for dynamic batch updates, on one device or a mesh.
 
-Counterpart of the single-device half of ``repro.core.stream``.
+Counterpart of ``repro.core.stream``.
 ``DynLP.step`` builds a fresh problem per Δ_t and waits for its solve;
 ``StreamEngine`` is the amortized version:
 
@@ -49,42 +49,72 @@ each commit runs the low-rank cold pass of ``kernels.landmark_propagate``
 over the cold rows.  Its labels answer for a hot-set agreement floor
 against the exact engine, not for equal bits.
 
+With ``mesh=`` (a ``core.distributed.DeviceMesh``) the same stream spans
+the mesh's shards: rows of every bucket are cut into contiguous shard
+blocks (buckets padded to a multiple of the shard count), each shard's
+solve runs on its own device, and one partition plan per ladder rung is
+reused for every batch in it.  ``transport=`` picks the per-sweep
+collective: ``"allgather"`` copies every shard's full F block;
+``"halo"`` copies only each shard's export prefix, with the export budget
+fixed once per rung (``StreamHaloPlan``) and the export row layout
+re-derived per Δ_t on the host; a batch whose exports overflow the budget
+runs on all-gather for that Δ_t, warned once per rung.  ``"auto"`` (the
+default, or ``REPRO_STREAM_TRANSPORT`` when ``transport`` is left out)
+takes halo for a rung iff its budgeted export fraction is at most
+``AUTO_EXPORT_FRACTION``; ``"auto:measured"`` times one real sweep per
+transport at rung entry and caches the winner (persisted in checkpoints).
+Labels equal the single-device engine's bit for bit under every transport;
+a ``bsr`` rung stages in the halo row layout under both transports, so its
+labels are the same bits across them too.  Each solve runs on the worker
+thread, on one side stream per mesh device, ordered after the staging by
+one event per device.
+
 Reads: ``committed_view()`` is the last commit's labels on the host;
 ``device_view()`` the same labels on the device (``DeviceLabelView``),
 published lazily on the first call and then at every drain, on a read
-stream of its own.  ``checkpoint`` / ``checkpoint_state`` / ``restore``
-persist the engine at a commit boundary (``core.persistence``).
-
-Not ported yet (the engine does not define them): the mesh
-(``mesh=``/``transport=``, the mesh keys of ``transport_summary``, the mesh
-read replica and ``view_sharding``), and in checkpoints the
-``auto:measured`` probe cache.
+stream of its own.  ``read_placement`` places it: ``"auto"`` is the
+engine's device without a mesh, and with one the mesh's read replica (a
+visible card outside the mesh) or else ``core.distributed.view_sharding``;
+a device or a ``ViewSharding`` may be given.  ``checkpoint`` /
+``checkpoint_state`` / ``restore`` persist the engine at a commit boundary
+(``core.persistence``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import distributed
 from repro_torch.core.components import compact_labels, component_order
 from repro_torch.core.dynlp import gprime_components
 from repro_torch.core.init_labels import supernode_init
 from repro_torch.core.propagate import PropagateResult, PropagationProblem
-from repro_torch.core.snapshot import (DeviceLabelView, HostSnapshot, LabelView, bucket,
-                                       bucket_k, build_host_problem, publish_device_view,
-                                       reorder_host_snapshot)
+from repro_torch.core.snapshot import (DeviceLabelView, HostSnapshot, LabelView, ViewSharding,
+                                       apply_halo_layout, bucket, bucket_k, build_host_problem,
+                                       publish_device_view, reorder_host_snapshot)
 from repro_torch.device import resolve_device
+from repro_torch.graph import partition
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import ell_bsr_layout
 from repro_torch.kernels.landmark_propagate import LandmarkConfig, LandmarkState
 
 logger = logging.getLogger(__name__)
+
+TRANSPORTS = ("allgather", "halo", "auto", "auto:measured")
+
+# auto takes halo for a rung iff its export budget would move at most this
+# fraction of the all-gather's rows per sweep (the reference's threshold)
+AUTO_EXPORT_FRACTION = 0.5
 
 
 @dataclasses.dataclass
@@ -99,7 +129,8 @@ class StreamStats:
     bucket: tuple[int, int]  # (U_bucket, K_bucket) device shape this Δ_t;
     # (0, 0) for a no-op Δ_t whose empty frontier staged nothing
     recompiled: bool  # True iff this Δ_t allocated a rung's buffers first
-    transport: str = "single"  # "single", or "none" (no-op Δ_t)
+    transport: str = "single"  # collective this Δ_t rode: "single" (no mesh),
+    # "allgather", "halo", or "none" (no-op Δ_t, nothing solved)
     backend: str = "none"  # "ref" / "ell_cuda" / "bsr" / "landmark"; "none"
     # for a no-op Δ_t; a bsr rung's slot-budget overflow shows up as an
     # "ell_cuda" batch; a "landmark" batch solved the hot working set only
@@ -136,6 +167,8 @@ class _Staging:
 
     staged: HostSnapshot  # possibly row-permuted
     backend: str
+    transport: str = "single"  # "single" | "allgather" | "halo"
+    plan: object | None = None  # StreamShardPlan / StreamHaloPlan (mesh only)
     rows: np.ndarray | None = None  # original row -> staged row (fold-back)
     perm: np.ndarray | None = None  # staged row -> original row (f0/frontier)
     slot: np.ndarray | None = None  # bsr per-edge tile-slot map
@@ -146,7 +179,8 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(PropagationProblem))
 
 
 class StreamEngine:
-    """Stateful streaming DynLP over a ``DynamicGraph``, on one device."""
+    """Stateful streaming DynLP over a ``DynamicGraph``, on one device or a
+    ``DeviceMesh``."""
 
     def __init__(
         self,
@@ -161,9 +195,23 @@ class StreamEngine:
         ingest_order: str = "arrival",
         read_placement: object = "auto",
         landmark: object = None,
+        mesh: distributed.DeviceMesh | None = None,
+        transport: str | None = None,
         device: str | torch.device | None = None,
     ):
-        self.device = resolve_device(device)
+        # mesh: shard the stream's rows over a DeviceMesh; the engine lives
+        # on the mesh's first device, and a device= that differs is refused
+        if mesh is not None and not isinstance(mesh, distributed.DeviceMesh):
+            raise TypeError(f"mesh must be a core.distributed.DeviceMesh or None, got "
+                            f"{type(mesh).__name__}")
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and distributed._normalize(device) != mesh.device:
+                raise ValueError(f"device={device!r} differs from the mesh's first device "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+        self.mesh = mesh
         self.graph = graph
         # ingest: who nominates kNN candidates for arriving batches.
         # None/"host" = the blockwise host staging path (graph default);
@@ -175,7 +223,7 @@ class StreamEngine:
             self.ingestor = None
         elif ingest == "device":
             from repro_torch.ingest import DeviceIngestor
-            self.ingestor = DeviceIngestor(graph.emb_dim, device=self.device)
+            self.ingestor = DeviceIngestor(graph.emb_dim, device=self.device, mesh=mesh)
             if graph.num_nodes:
                 self.ingestor.attach(graph)
         elif isinstance(ingest, str):
@@ -197,13 +245,56 @@ class StreamEngine:
         if backend not in (None, "auto"):
             ops.backend_spec(backend)  # unknown names fail here, not mid-stream
         self.backend = backend
+        # transport: the per-sweep collective of a sharded solve.  An
+        # explicit "halo" demands a mesh; left out, REPRO_STREAM_TRANSPORT
+        # replaces the "auto" default, a fleet-wide hint that a mesh-less
+        # engine ignores
+        if transport is not None and transport not in TRANSPORTS:
+            raise ValueError(f"unknown transport {transport!r}; want one of {TRANSPORTS}")
+        if transport == "halo" and mesh is None:
+            raise ValueError("transport='halo' requires mesh= (a single-device stream has "
+                             "no collective)")
+        if transport is None:
+            transport = os.environ.get("REPRO_STREAM_TRANSPORT", "auto")
+            if transport not in TRANSPORTS:
+                raise ValueError(f"REPRO_STREAM_TRANSPORT={transport!r} invalid; want one "
+                                 f"of {TRANSPORTS}")
+        self.transport = transport
+        # the REPRO_BACKEND hint is read once, here: the row padding and the
+        # candidate set depend on it, so rungs resolve with use_env=False.
+        # A hint with no sharded form degrades to auto on a mesh.
+        knob = backend
+        if knob in (None, "auto"):
+            env = os.environ.get("REPRO_BACKEND", "auto")
+            knob = (env if env != "auto" and (mesh is None or ops.backend_spec(env).sharded)
+                    else "auto")
+        self._backend_knob = knob
         # only when bsr is among the backends the knob could resolve to
         # does the engine pad rows to the tile edge and measure tile fill
-        self._backend_candidates = ops.backend_candidates(backend, device=self.device)
+        self._backend_candidates = (
+            ops.backend_candidates(None, device=self.device, sharded=mesh is not None)
+            if knob == "auto" else (ops.backend_spec(knob).name,))
         self._bsr_block = ops.bsr_block_size(self.device.type)
-        # every rung's rows must tile evenly into BSR block rows
-        self._row_multiple = (self._bsr_block if "bsr" in self._backend_candidates
-                              else None)
+        # rows shard evenly over the mesh, and every shard's rows tile
+        # evenly into BSR block rows
+        row_multiple = mesh.n_devices if mesh is not None else 1
+        if "bsr" in self._backend_candidates:
+            row_multiple *= self._bsr_block
+        self._row_multiple = row_multiple if row_multiple > 1 else None
+        # per-rung mesh state: plans, the transport fixed at rung entry and
+        # a halo rung's export budget, the auto:measured probe times
+        self._plans: dict[tuple, distributed.StreamShardPlan] = {}
+        self.plan_builds = 0  # partition plans built: ≤ rungs touched
+        self._transport_modes: dict[tuple[int, int], str] = {}
+        self._export_budgets: dict[tuple[int, int], int] = {}
+        self._overflow_warned: set[tuple[int, int]] = set()
+        self.halo_batches = 0  # batches solved on the halo transport
+        self.transport_overflows = 0  # halo batches sent to all-gather
+        self._measured: dict[tuple[int, int], dict] = {}  # auto:measured
+        self.probe_cache_hits = 0  # rungs decided from a restored probe cache
+        # bytes each transport's gathers copied, and its sweeps
+        self.transport_bytes = {t: 0 for t in distributed.TRANSPORTS}
+        self.transport_sweeps = {t: 0 for t in distributed.TRANSPORTS}
         # max_k caps the ELL neighbor axis (heaviest-edge truncation);
         # "auto" = 4x the graph's kNN k, None = uncapped
         if isinstance(max_k, str) and max_k != "auto":
@@ -227,7 +318,7 @@ class StreamEngine:
         # None/"auto" and a config, the registry may take landmark once the
         # state is ready; the first such decision latches for the engine's
         # lifetime, so every later rung keeps one contract.
-        if landmark is None and backend == "landmark":
+        if landmark is None and knob == "landmark":
             landmark = True
         if landmark is True:
             landmark = LandmarkConfig()
@@ -254,22 +345,22 @@ class StreamEngine:
         # query-side committed snapshot, replaced at every drain
         self._view = LabelView.from_graph(graph, commit_id=0)
         # its device twin: published on the first ``device_view()`` call,
-        # then at every drain, on the engine's device; on a CUDA device
-        # publication and reads run on a stream of their own.  The only
-        # placement is "auto" (None alike): the reference's other values
-        # place the mesh's read replica, which the port does not have yet
-        if not (read_placement is None or (isinstance(read_placement, str)
-                                           and read_placement == "auto")):
-            raise ValueError(f"read_placement={read_placement!r}: only 'auto' (the "
-                             "engine's device) until the mesh read replica is ported")
-        self._read_stream = (torch.cuda.Stream(device=self.device)
-                             if self.device.type == "cuda" else None)
+        # then at every drain; on a CUDA device publication and reads run
+        # on a stream of their own (one per device of a sharded view)
+        self._read_placement = _resolve_placement(read_placement, mesh, self.device)
+        devs = (self._read_placement.devices if isinstance(self._read_placement, ViewSharding)
+                else (self._read_placement,))
+        self._read_streams = {d: torch.cuda.Stream(device=d) for d in dict.fromkeys(devs)
+                              if d.type == "cuda"}
         self._device_view: DeviceLabelView | None = None
         self._worker = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="stream-solve")
         self._closed = False
-        self._side = (torch.cuda.Stream(device=self.device)
-                      if self.device.type == "cuda" else None)
+        # the solve's side stream, one per device of a mesh
+        self._sides = {d: torch.cuda.Stream(device=d)
+                       for d in (mesh.distinct if mesh is not None else (self.device,))
+                       if d.type == "cuda"}
+        self._side = self._sides.get(self.device)
 
     # ------------------------------------------------------------------ #
     def _resolve_rung_backend(self, key: tuple[int, int], nbr_staged: np.ndarray,
@@ -286,8 +377,9 @@ class StreamEngine:
         if "bsr" in self._backend_candidates:
             bl = ell_bsr_layout(nbr_staged, self._bsr_block)
             fill = bl.fill
-        backend = ops.select_backend(self.backend, device=self.device, num_rows=key[0],
-                                     block_fill=fill)
+        backend = ops.select_backend(self._backend_knob, device=self.device, num_rows=key[0],
+                                     sharded=self.mesh is not None, block_fill=fill,
+                                     use_env=False)  # the hint was read at construction
         self._backend_modes[key] = backend
         if backend == "bsr":
             grow = key[0] / max(1, n_valid)
@@ -336,8 +428,9 @@ class StreamEngine:
             lm.refresh(g, getattr(self.ingestor, "store", None))  # lazy activation
         if not self._lm_streaming:
             n_unl = int((g.alive & (g.labels == UNLABELED)).sum())
-            resolved = ops.select_backend(self.backend, device=self.device,
-                                          num_rows=bucket(n_unl), landmark_ready=lm.ready)
+            resolved = ops.select_backend(self._backend_knob, device=self.device,
+                                          num_rows=bucket(n_unl), sharded=self.mesh is not None,
+                                          landmark_ready=lm.ready, use_env=False)
             if resolved != "landmark" or not lm.ready:
                 return None
             self._lm_streaming = True
@@ -392,30 +485,196 @@ class StreamEngine:
         return _Staging(staged=staged, backend="bsr", rows=inv[: len(host.unl_ids)],
                         perm=order, slot=bl.slot, num_slots=self._slot_budgets[key])
 
-    def _commit(self, host: HostSnapshot) -> tuple[PropagationProblem, bool]:
-        """Copy a host snapshot into the rung's next buffer generation;
-        returns the buffers and whether the rung was entered first."""
+    # ------------------------------------------------------------------ #
+    def _plan_for(self, key: tuple[int, int], backend: str, num_slots: int = 0,
+                  export_max: int | None = None) -> distributed.StreamShardPlan:
+        """The rung's plan, all-gather or (with ``export_max``, the budget
+        fixed at rung entry) halo: built once and reused for every batch in
+        the rung.  A bsr rung's slot overflow adds its ell_cuda twin, a halo
+        rung's export overflow its all-gather twin."""
+        pkey = (key, backend, num_slots, export_max)
+        plan = self._plans.get(pkey)
+        if plan is None:
+            kw = dict(backend=backend, delta=self.delta, max_iters=self.max_iters,
+                      block_size=self._bsr_block if backend == "bsr" else 0,
+                      num_slots=num_slots if backend == "bsr" else 0)
+            plan = (distributed.build_stream_plan(self.mesh, key, **kw) if export_max is None
+                    else distributed.build_stream_halo_plan(self.mesh, key, export_max, **kw))
+            self._plans[pkey] = plan
+            self.plan_builds += 1
+        return plan
+
+    def _stage_mesh(self, host: HostSnapshot) -> _Staging:
+        """Resolve a mesh Δ_t: the rung's backend, transport and plan.
+
+        The backend, transport and budgets are decided once, at rung entry:
+        ``"auto"`` lays out the rung's first snapshot and takes halo iff the
+        budgeted export fraction is at most ``AUTO_EXPORT_FRACTION``
+        (``"auto:measured"`` times one real sweep per transport instead; a
+        one-shard mesh always takes all-gather).  Within a halo rung the
+        export layout is re-derived from every batch's topology; a batch
+        whose export counts overflow the budget runs on the rung's
+        all-gather twin (warned once per rung).  A bsr rung stages in the
+        halo layout under BOTH transports, so the tile layout, and the
+        labels, are the same in both; a batch whose slot requirement
+        overflows the rung's budget runs on the rung's ell_cuda twin under
+        the same transport routing (warned once per rung)."""
+        key = host.bucket_key
+        nd = self.mesh.n_devices
+        backend = self._backend_modes.get(key)
+        mode = self._transport_modes.get(key)
+        allgather_only = (self.transport == "allgather"
+                          or (self.transport in ("auto", "auto:measured") and nd == 1))
+        bsr_possible = backend == "bsr" or (backend is None
+                                            and "bsr" in self._backend_candidates)
+        # the halo layout doubles as the bsr row order: derive it whenever
+        # the rung needs halo bytes or bsr tiles
+        need_layout = bsr_possible or mode == "halo" or (mode is None and not allgather_only)
+        layout = partition.build_halo_plan(host.nbr, nd) if need_layout else None
+        bl = None
+        if backend is None:
+            backend, bl = self._resolve_rung_backend(
+                key, layout.nbr if layout is not None else host.nbr, len(host.unl_ids))
+        if mode is None:
+            if allgather_only:
+                mode = "allgather"
+            else:
+                budget = partition.export_budget(layout, len(host.unl_ids))
+                if self.transport == "auto:measured":
+                    mode = self._measured_mode(key)
+                    if mode is None:
+                        mode = self._measure_rung_transport(key, host, layout, budget, backend)
+                else:
+                    frac = budget * nd / key[0]
+                    mode = ("halo" if self.transport == "halo" or frac <= AUTO_EXPORT_FRACTION
+                            else "allgather")
+                    if mode == "allgather":
+                        logger.info("stream transport: rung %s export fraction %.2f > %.2f; "
+                                    "auto takes all-gather", key, frac, AUTO_EXPORT_FRACTION)
+                if mode == "halo":
+                    self._export_budgets[key] = budget
+            self._transport_modes[key] = mode
+
+        staged, rows, perm = host, None, None
+        if backend == "bsr" or mode == "halo":
+            if layout is None:
+                layout = partition.build_halo_plan(host.nbr, nd)
+            staged = apply_halo_layout(host, layout)
+            rows = layout.inv_perm[: len(host.unl_ids)]
+            perm = layout.perm
+        slot, num_slots = None, 0
+        backend_this = backend
+        if backend == "bsr":
+            if bl is None:
+                bl = ell_bsr_layout(staged.nbr, self._bsr_block)
+            if bl.num_slots > self._slot_budgets[key]:
+                # this Δ_t rides the rung's ell_cuda twin but keeps the
+                # rung's transport routing below
+                self._slot_overflow(key, bl.num_slots)
+                backend_this = "ell_cuda"
+            else:
+                slot, num_slots = bl.slot, self._slot_budgets[key]
+                self.bsr_batches += 1
+
+        if mode == "halo":
+            budget = self._export_budgets[key]
+            if int(layout.export_counts.max()) > budget:
+                if key not in self._overflow_warned:
+                    self._overflow_warned.add(key)
+                    logger.warning(
+                        "stream halo: rung %s export count %d overflows the budget %d; "
+                        "this batch runs on all-gather (warned once per rung)", key,
+                        int(layout.export_counts.max()), budget)
+                self.transport_overflows += 1
+            else:
+                self.halo_batches += 1
+                return _Staging(staged=staged, backend=backend_this, transport="halo",
+                                plan=self._plan_for(key, backend_this, num_slots, budget),
+                                rows=rows, perm=perm, slot=slot, num_slots=num_slots)
+        return _Staging(staged=staged, backend=backend_this, transport="allgather",
+                        plan=self._plan_for(key, backend_this, num_slots), rows=rows,
+                        perm=perm, slot=slot, num_slots=num_slots)
+
+    def _measured_mode(self, key) -> str | None:
+        """The persisted ``auto:measured`` probe cache: a rung this engine
+        (or the one it was restored from) already timed takes the winner
+        without probing again.  None on a miss."""
+        cached = self._measured.get(key)
+        if cached is None:
+            return None
+        mode = "halo" if cached["halo"] <= cached["allgather"] else "allgather"
+        self.probe_cache_hits += 1
+        logger.info("stream transport: rung %s probe-cache hit (halo %.4f ms vs all-gather "
+                    "%.4f ms); taking %s", key, cached["halo"], cached["allgather"], mode)
+        return mode
+
+    def _measure_rung_transport(self, key, host, layout, budget, backend) -> str:
+        """``auto:measured``: time one real sweep per transport on the rung's
+        first snapshot (``measure_transports``) and cache the winner.  The
+        probes stage throwaway copies and never touch the engine's
+        buffers."""
+        if budget >= key[0] // self.mesh.n_devices:
+            return "allgather"  # halo copies no fewer rows: skip the probe
+        staged = apply_halo_layout(host, layout)
+        bsr_kw = {}
+        if backend == "bsr":
+            bsr_kw = dict(slot=ell_bsr_layout(staged.nbr, self._bsr_block).slot,
+                          block_size=self._bsr_block, num_slots=self._slot_budgets[key])
+        times = measure_transports(self.mesh, staged, budget, backend=backend,
+                                   delta=self.delta, **bsr_kw)
+        mode = "halo" if times["halo"] <= times["allgather"] else "allgather"
+        self._measured[key] = {t: round(v, 4) for t, v in times.items()}
+        logger.info("stream transport: rung %s measured halo %.4f ms vs all-gather %.4f ms a "
+                    "sweep; taking %s", key, times["halo"], times["allgather"], mode)
+        return mode
+
+    # ------------------------------------------------------------------ #
+    def _commit(self, host: HostSnapshot, plan=None) -> tuple[object, bool]:
+        """Copy a host snapshot into the rung's next buffer generation (on a
+        mesh, each shard's rows into that shard's tensors); returns the
+        buffers and whether the rung was entered first."""
         key = host.bucket_key
         first = key not in self._buffers
         slots = self._buffers.setdefault(key, [None, None])
         gen = self._gen.get(key, 1) ^ 1
         self._gen[key] = gen
-        arrays = {name: torch.from_numpy(np.ascontiguousarray(getattr(host, name)))
-                  for name in _FIELDS}
-        if slots[gen] is None:  # this generation's first batch allocates it
+        arrays = {name: np.ascontiguousarray(getattr(host, name)) for name in _FIELDS}
+        if plan is not None:
+            if slots[gen] is None:
+                slots[gen] = plan.put_problem(*(arrays[name] for name in _FIELDS))
+            else:
+                m = plan.rows_per_shard
+                for sh, part in enumerate(slots[gen].shards):
+                    for name, a in arrays.items():
+                        getattr(part, name).copy_(torch.from_numpy(a[sh * m:(sh + 1) * m]))
+        elif slots[gen] is None:  # this generation's first batch allocates it
             slots[gen] = PropagationProblem(
-                **{name: t.to(self.device, copy=True) for name, t in arrays.items()})
+                **{name: torch.from_numpy(a).to(self.device, copy=True)
+                   for name, a in arrays.items()})
         else:
-            for name, t in arrays.items():
-                getattr(slots[gen], name).copy_(t)
+            for name, a in arrays.items():
+                getattr(slots[gen], name).copy_(torch.from_numpy(a))
         self.bucket_keys.add(key)
         return slots[gen], first
 
     def _solve(self, problem, f0, frontier, st: _Staging, slot, ready) -> PropagateResult:
-        """The worker thread's job: the solve, on the side stream behind
-        ``ready``, finished before the job returns."""
+        """The worker thread's job: the solve, on the side streams behind
+        ``ready`` (one event per device), finished before the job
+        returns."""
+        if st.plan is not None:
+            with contextlib.ExitStack() as streams:
+                for dev, side in self._sides.items():
+                    side.wait_event(ready[dev])
+                    streams.enter_context(torch.cuda.stream(side))
+                res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
+                                          max_iters=self.max_iters, backend=st.backend,
+                                          shard_plan=st.plan, slot=slot,
+                                          num_slots=st.num_slots or None)
+                for side in self._sides.values():
+                    side.synchronize()
+            return res
         if self._side is not None:
-            self._side.wait_event(ready)
+            self._side.wait_event(ready[self.device])
         tiled = {}
         if st.backend == "bsr":
             tiled = dict(slot=slot, num_slots=st.num_slots, block_size=self._bsr_block)
@@ -487,11 +746,11 @@ class StreamEngine:
         # a bsr batch stages its rows in component order; ``host`` stays in
         # the original order for the supernode init and f0 below, which
         # map through ``st.rows``/``st.perm``
-        st = self._stage_single(host)
-        problem, recompiled = self._commit(st.staged)
-        frontier_dev = torch.from_numpy(
-            frontier if st.perm is None else frontier[st.perm]).to(dev)
-        slot_dev = None if st.slot is None else torch.from_numpy(st.slot).to(dev)
+        st = self._stage_mesh(host) if self.mesh is not None else self._stage_single(host)
+        problem, recompiled = self._commit(st.staged, st.plan)
+        put = st.plan.put_row if st.plan is not None else (lambda a: torch.from_numpy(a).to(dev))
+        frontier_dev = put(frontier if st.perm is None else frontier[st.perm])
+        slot_dev = None if st.slot is None else put(st.slot)
 
         # ---- Step 2: supernode label initialization (as DynLP.step) ----
         n_components = 0
@@ -502,8 +761,8 @@ class StreamEngine:
             comp = compact_labels(comp_local)[local_idx]
             n_components = int(comp.max()) + 1
             rows = host.remap[new_unl]
-            rows = torch.from_numpy(rows if st.rows is None else st.rows[rows]).to(dev)
-            f_init = supernode_init(comp, problem.wl0[rows], problem.wl1[rows],
+            f_init = supernode_init(comp, torch.from_numpy(host.wl0[rows]).to(dev),
+                                    torch.from_numpy(host.wl1[rows]).to(dev),
                                     num_segments=max(m, 1))
             g.f[new_unl] = f_init.cpu().numpy()
 
@@ -513,11 +772,11 @@ class StreamEngine:
         # ---- Step 3: queue this batch's solve ----
         f0 = np.full(u_pad, 0.5, np.float32)
         f0[:u] = g.f[host.unl_ids]
-        f0_dev = torch.from_numpy(f0 if st.perm is None else f0[st.perm]).to(dev)
-        ready = None
-        if self._side is not None:  # after every staged tensor, the slot map too
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(dev))
+        f0_dev = put(f0 if st.perm is None else f0[st.perm])
+        ready = {}  # after every staged tensor, the slot map too, on each device
+        for d in self._sides:
+            ready[d] = torch.cuda.Event()
+            ready[d].record(torch.cuda.current_stream(d))
         job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, st, slot_dev,
                                   ready)
         self.recompile_count += recompiled
@@ -525,7 +784,7 @@ class StreamEngine:
         self._pending = _Pending(
             job=job, unl_ids=host.unl_ids, t0=t0, num_components=n_components,
             frontier_size=int(frontier.sum()), bucket=host.bucket_key,
-            recompiled=recompiled, transport="single", backend=st.backend, rows=st.rows,
+            recompiled=recompiled, transport=st.transport, backend=st.backend, rows=st.rows,
             cold_ids=cold_ids,
             # labels/alive fixed by apply_batch; f holds batch t-1's
             # committed labels plus this batch's supernode inits
@@ -553,6 +812,9 @@ class StreamEngine:
             self.graph.f[p.unl_ids] = solved
             p.view_f[p.unl_ids] = solved
             iterations, converged, resid = res.iterations, res.converged, res.max_residual
+            if p.transport in self.transport_bytes:
+                self.transport_bytes[p.transport] += res.transport_bytes
+                self.transport_sweeps[p.transport] += res.iterations
         if p.cold_ids is not None:
             self._landmark_commit(p)
         self.commits += 1
@@ -589,16 +851,29 @@ class StreamEngine:
         return self._pending is not None
 
     def transport_summary(self) -> dict:
-        """JSON-friendly account of the per-rung backend decisions: the
-        requested backend, each rung's backend and bsr tile-slot budget, how
-        many batches rode bsr or overflowed to ell_cuda, and the landmark
-        split (its batches, cold rows served, resamples and argkmin
-        assignment chunks).  (The reference's mesh keys come with the
-        mesh.)"""
+        """JSON-friendly account of the sharded transport and the per-rung
+        backend decisions: the requested knobs, each rung's transport mode,
+        export budget, backend and bsr tile-slot budget, how many batches
+        rode halo or bsr and how many overflowed to their fallbacks, the
+        ``auto:measured`` probe times, the bytes each transport's gathers
+        copied a sweep, and the landmark split (its batches, cold rows
+        served, resamples and argkmin assignment chunks)."""
         def by_rung(d):
             return {f"{u}x{k}": v for (u, k), v in sorted(d.items())}
 
         return {
+            "requested": self.transport,
+            "mesh_devices": self.mesh.n_devices if self.mesh is not None else 0,
+            "rung_modes": by_rung(self._transport_modes),
+            "export_budgets": by_rung(self._export_budgets),
+            "halo_batches": self.halo_batches,
+            "overflows": self.transport_overflows,
+            "plan_builds": self.plan_builds,
+            "measured_sweep_ms": by_rung(self._measured),
+            "probe_cache_hits": self.probe_cache_hits,
+            "transport_bytes_per_sweep": {
+                t: self.transport_bytes[t] / self.transport_sweeps[t]
+                for t in self.transport_bytes if self.transport_sweeps[t]},
             "requested_backend": self.backend or "auto",
             "rung_backends": by_rung(self._backend_modes),
             "slot_budgets": by_rung(self._slot_budgets),
@@ -622,7 +897,7 @@ class StreamEngine:
         return self._view
 
     def _publish(self, view: LabelView) -> DeviceLabelView:
-        return publish_device_view(view, self.device, self._read_stream)
+        return publish_device_view(view, self._read_placement, self._read_streams)
 
     def device_view(self) -> DeviceLabelView:
         """The committed snapshot on the device: a read is one gather
@@ -683,3 +958,48 @@ class StreamEngine:
         g = self.graph
         ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
         return ids, (g.f[ids] >= cutoff).astype(np.int8)
+
+
+def _resolve_placement(read_placement, mesh, device: torch.device):
+    """The engine's read placement: ``"auto"``/None is the engine's device
+    without a mesh and ``core.distributed.read_placement(mesh)`` with one;
+    a device (or its name) or a ``ViewSharding`` is taken as given."""
+    if read_placement is None or (isinstance(read_placement, str)
+                                  and read_placement == "auto"):
+        return distributed.read_placement(mesh) if mesh is not None else device
+    if isinstance(read_placement, ViewSharding):
+        return ViewSharding(tuple(distributed._normalize(d) for d in read_placement.devices))
+    if isinstance(read_placement, (str, torch.device)):
+        try:
+            dev = torch.device(read_placement)
+        except RuntimeError as e:
+            raise ValueError(f"read_placement={read_placement!r}: want 'auto', a device or a "
+                             "ViewSharding") from e
+        return distributed._normalize(dev)
+    raise ValueError(f"read_placement={read_placement!r}: want 'auto', a device or a "
+                     "ViewSharding")
+
+
+def measure_transports(mesh: distributed.DeviceMesh, staged: HostSnapshot, export_max: int, *,
+                       backend: str, delta: float, slot=None, block_size: int = 0,
+                       num_slots: int = 0) -> dict[str, float]:
+    """One real sweep of ``staged`` (rows in the halo layout) per
+    transport, in ms: probe plans with ``max_iters=1``, every row on the
+    frontier from 0.5, one warm-up run each, then one timed run (CUDA
+    events on every card of the mesh, the longest; the host clock on the
+    CPU).  The ``auto:measured`` probe of ``StreamEngine``."""
+    key = staged.bucket_key
+    tiled = dict(block_size=block_size, num_slots=num_slots) if backend == "bsr" else {}
+    times = {}
+    for tr in distributed.TRANSPORTS:
+        build = (distributed.build_stream_plan if tr == "allgather" else
+                 functools.partial(distributed.build_stream_halo_plan, export_max=export_max))
+        plan = build(mesh, key, backend=backend, delta=delta, max_iters=1, **tiled)
+        problem = plan.put_problem(staged.nbr, staged.wgt, staged.wl0, staged.wl1,
+                                   staged.valid)
+        f0 = plan.put_row(np.full(key[0], 0.5, np.float32))
+        fr = plan.put_row(staged.valid)
+        sl = plan.put_row(slot) if slot is not None else None
+        plan(problem, f0, fr, slot=sl)  # warm-up
+        times[tr] = distributed.timed_ms(mesh, lambda: plan(problem, f0, fr, slot=sl))
+    return times

@@ -9,6 +9,8 @@
 //                     store row (base_id + i); empty slots are (-inf, -1);
 //   disp (C,):        valid & row < base_id & max_{valid batch rows} w
 //                     > kth - slack (the rows a batch may displace).
+// "row" is a global id, row0 + the store row: a shard of a row-sharded store
+// passes its offset row0, a whole store 0.
 //
 // Arithmetic: every dot product sums D terms in order 0..D-1, each multiply
 // and add rounded on its own (__fmul_rn / __fadd_rn, no FMA, no tensor
@@ -83,11 +85,11 @@ __global__ void argkmin_disp_kernel(const float* __restrict__ pcol,
                                     const uint8_t* __restrict__ valid,
                                     const float* __restrict__ kth,
                                     uint8_t* __restrict__ disp, int c, int row_blocks,
-                                    int base_id, float slack) {
+                                    int base_id, int row0, float slack) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= c) return;
   uint8_t out = 0;
-  if (valid[j] && j < base_id) {
+  if (valid[j] && row0 + j < base_id) {
     float cm = -CUDART_INF_F;
     for (int b = 0; b < row_blocks; ++b) cm = fmaxf(cm, pcol[(size_t)b * c + j]);
     out = cm > __fsub_rn(kth[j], slack) ? 1 : 0;
@@ -101,26 +103,27 @@ __global__ void argkmin_disp_kernel(const float* __restrict__ pcol,
 // (0 on success; cudaErrorInvalidValue for a D or a list bound the kernels
 // are not built for).  The caller has checked shapes, types, contiguity,
 // 16-byte alignment of `store`, 8 <= D <= 128 with D % 8 == 0,
-// 1 <= tk <= tkb, m, c >= 1, that c * D and base_id + m fit in 32 bits, and
-// chosen splits >= 1.
+// 1 <= tk <= tkb, m, c >= 1, that c * D, base_id + m and row0 + c fit in 32
+// bits, and chosen splits >= 1.  row0 is the global id of the store's row 0
+// (0 for a whole store, a shard's offset under the sharded sweep).
 extern "C" int argkmin(const void* store, const void* valid, const void* kth,
                        const void* batch, const void* bvalid, void* val, void* idx,
                        void* disp, void* pval, void* pidx, void* pcol, int c, int d,
-                       int m, int tk, int tkb, int splits, int base_id, float slack,
-                       void* stream) {
+                       int m, int tk, int tkb, int splits, int base_id, int row0,
+                       float slack, void* stream) {
   int err;
   switch (tkb) {
     case 8:
       err = argkmin_lists_tkb8(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                               m, tk, splits, base_id, stream);
+                               m, tk, splits, base_id, row0, stream);
       break;
     case 16:
       err = argkmin_lists_tkb16(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                                m, tk, splits, base_id, stream);
+                                m, tk, splits, base_id, row0, stream);
       break;
     case 32:
       err = argkmin_lists_tkb32(store, valid, batch, bvalid, val, idx, pval, pidx, pcol, c, d,
-                                m, tk, splits, base_id, stream);
+                                m, tk, splits, base_id, row0, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -129,7 +132,7 @@ extern "C" int argkmin(const void* store, const void* valid, const void* kth,
   const int row_blocks = (m + repro_argkmin::kRows - 1) / repro_argkmin::kRows;
   argkmin_disp_kernel<<<(c + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const float*)pcol, (const uint8_t*)valid, (const float*)kth, (uint8_t*)disp, c,
-      row_blocks, base_id, slack);
+      row_blocks, base_id, row0, slack);
   return (int)cudaGetLastError();
 }
 

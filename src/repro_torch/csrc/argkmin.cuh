@@ -99,13 +99,16 @@ __device__ __forceinline__ void kth_of(const float (&v)[TKB], const int (&ix)[TK
 // so every split meets its share of dead rows and of the store's unused
 // capacity.  The split's top-TK list of every batch row goes to
 // pval/pidx[blockIdx.y], the max over the block's valid batch rows
-// of w for every store row to pcol[blockIdx.x].
+// of w for every store row to pcol[blockIdx.x].  Store row r of the block
+// is global row row0 + r (0 for a whole store; a shard's offset under the
+// sharded sweep): candidate ids, the self-match and the displacement test
+// are in global ids.
 template <int D, int TKB>
 __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
     const float* __restrict__ store, const uint8_t* __restrict__ valid,
     const float* __restrict__ batch, const uint8_t* __restrict__ bvalid,
     float* __restrict__ pval, int* __restrict__ pidx, float* __restrict__ pcol, int c, int m,
-    int tk, int base_id) {
+    int tk, int base_id, int row0) {
   // store rows per step (one transposing max each): 8, or 4 for D > 64,
   // where the batch row's D registers leave less room
   constexpr int kRowStep = D > 64 ? 4 : 8;
@@ -184,7 +187,7 @@ __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
         for (int x = 1; x < kRowStep; ++x)
           if (x == u) w = acc[x];
         const int r = r0 + u;
-        const int j = t0 + r;
+        const int j = row0 + t0 + r;
         if (w > thr && tvalid[r] && j != self_row) {
           topk_insert<TKB, true>(v, ix, tk, w, j);
           float kw;
@@ -201,7 +204,7 @@ __global__ void __launch_bounds__(kRows) argkmin_tile_kernel(
     for (int r = t; r < rows; r += kRows) {
       const int j = t0 + r;
       float cm = -CUDART_INF_F;
-      if (tvalid[r] && j < base_id) {
+      if (tvalid[r] && row0 + j < base_id) {
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) cm = fmaxf(cm, wmax[w][r]);
       }
@@ -262,22 +265,22 @@ __global__ void argkmin_merge_kernel(const float* __restrict__ pval,
 template <int D, int TKB>
 cudaError_t launch_tile(dim3 grid, cudaStream_t s, const float* store, const uint8_t* valid,
                         const float* batch, const uint8_t* bvalid, float* pval, int* pidx,
-                        float* pcol, int c, int m, int tk, int base_id) {
+                        float* pcol, int c, int m, int tk, int base_id, int row0) {
   argkmin_tile_kernel<D, TKB><<<grid, kRows, 0, s>>>(store, valid, batch, bvalid, pval, pidx,
-                                                     pcol, c, m, tk, base_id);
+                                                     pcol, c, m, tk, base_id, row0);
   return cudaGetLastError();
 }
 
 #define REPRO_ARGKMIN_D(DD) \
   case DD:                  \
     return launch_tile<DD, TKB>(grid, s, store, valid, batch, bvalid, pval, pidx, pcol, c, m, \
-                                tk, base_id);
+                                tk, base_id, row0);
 
 template <int TKB>
 cudaError_t tile_pass(int d, dim3 grid, cudaStream_t s, const float* store,
                       const uint8_t* valid, const float* batch, const uint8_t* bvalid,
                       float* pval, int* pidx, float* pcol, int c, int m, int tk,
-                      int base_id) {
+                      int base_id, int row0) {
   switch (d) {
     REPRO_ARGKMIN_D(8)
     REPRO_ARGKMIN_D(16)
@@ -344,7 +347,7 @@ template <int TKB>
 int argkmin_lists(const void* store, const void* valid, const void* batch,
                   const void* bvalid, void* val, void* idx, void* pval, void* pidx,
                   void* pcol, int c, int d, int m, int tk, int splits, int base_id,
-                  void* stream) {
+                  int row0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int row_blocks = (m + kRows - 1) / kRows;
   const float* st = (const float*)store;
@@ -355,7 +358,8 @@ int argkmin_lists(const void* store, const void* valid, const void* batch,
   int* pi = (int*)pidx;
   float* pc = (float*)pcol;
   const cudaError_t err =
-      tile_pass<TKB>(d, dim3(row_blocks, splits), s, st, va, ba, bv, pv, pi, pc, c, m, tk, base_id);
+      tile_pass<TKB>(d, dim3(row_blocks, splits), s, st, va, ba, bv, pv, pi, pc, c, m, tk, base_id,
+                     row0);
   if (err != cudaSuccess) return (int)err;
   argkmin_merge_kernel<TKB><<<(m + 255) / 256, 256, 0, s>>>(pv, pi, (float*)val, (int*)idx, m,
                                                            tk, splits);
@@ -367,4 +371,4 @@ int argkmin_lists(const void* store, const void* valid, const void* batch,
 #define REPRO_ARGKMIN_LISTS_ARGS                                                           \
   const void *store, const void *valid, const void *batch, const void *bvalid, void *val, \
       void *idx, void *pval, void *pidx, void *pcol, int c, int d, int m, int tk,         \
-      int splits, int base_id, void *stream
+      int splits, int base_id, int row0, void *stream

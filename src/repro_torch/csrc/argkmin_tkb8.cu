@@ -5,7 +5,8 @@
 
 extern "C" int argkmin_lists_tkb8(REPRO_ARGKMIN_LISTS_ARGS) {
   return repro_argkmin::argkmin_lists<8>(store, valid, batch, bvalid, val, idx, pval, pidx,
-                                          pcol, c, d, m, tk, splits, base_id, stream);
+                                          pcol, c, d, m, tk, splits, base_id, row0,
+                                          stream);
 }
 
 extern "C" int argkmin_resident_tkb8(int d) {

@@ -7,11 +7,12 @@ selector, running the argkmin kernel (``kernels.argkmin``) instead of the
 host BLAS staging path.
 """
 
-from .embedding_store import EmbeddingStore
+from .embedding_store import EmbeddingStore, ShardedEmbeddingStore
 from .incremental_knn import DeviceIngestor, ingest_cache_size, ingest_ladder_bound
 
 __all__ = [
     "EmbeddingStore",
+    "ShardedEmbeddingStore",
     "DeviceIngestor",
     "ingest_cache_size",
     "ingest_ladder_bound",

@@ -18,6 +18,12 @@ Updates happen in place (``copy_`` / ``index_put_`` into the resident
 tensors): the port's form of the reference's donated jit updates, which
 alias their input buffers.  ``grow`` allocates the doubled rung and copies
 the old rows over.  Ids out of range are dropped, as ``mode="drop"`` does.
+
+``ShardedEmbeddingStore`` is the mesh twin: the same ladder and updates,
+but every (capacity, ·) tensor is cut into the mesh's shards, each holding
+``cap / D`` contiguous rows as tensors of its own on its device, and the
+candidate search flips to move-the-batch (``core.distributed.
+StoreShardPlan``, ``kernels.argkmin.shard_sweep``).
 """
 
 from __future__ import annotations
@@ -88,9 +94,21 @@ class EmbeddingStore:
     def capacity(self) -> int:
         return self.emb.shape[0]
 
+    @property
+    def n_shards(self) -> int:
+        """Shards the store's rows are cut into (1 here)."""
+        return 1
+
     def device_bytes(self) -> int:
-        """Resident bytes of the store's three tensors."""
+        """Resident bytes of the store's three tensors (the largest shard's
+        on a sharded store)."""
         return sum(t.numel() * t.element_size() for t in (self.emb, self.valid, self.kth))
+
+    def host_state(self) -> dict[str, np.ndarray]:
+        """Full host copies of ``emb``/``valid``/``kth``, taken now (the
+        checkpoint's leaves; the same arrays on every mesh shape)."""
+        return {k: getattr(self, k).to("cpu", copy=True).numpy()
+                for k in ("emb", "valid", "kth")}
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
@@ -208,3 +226,184 @@ class EmbeddingStore:
         rows = np.asarray(rows, np.int64)
         keep = self._in_range(rows)
         self.kth[self._put(rows[keep])] = self._put(np.asarray(vals, np.float32)[keep])
+
+
+class ShardedEmbeddingStore(EmbeddingStore):
+    """Row-sharded twin of ``EmbeddingStore`` over a ``DeviceMesh``.
+
+    Shard s holds global rows ``[s·cap/D, (s+1)·cap/D)`` as its own
+    ``emb_s[s]``/``valid_s[s]``/``kth_s[s]`` on its device.  A grow re-cuts
+    the doubled rung: each new shard copies its rows from the old shards
+    that held them.  ``append`` moves the batch (one copy on every device of
+    the mesh) and writes the new rows into the shards that own them;
+    ``kill``/``set_kth`` write each id in its owner shard.  ``emb``,
+    ``valid`` and ``kth`` are whole-store copies on the mesh's first device
+    (for inspection and persistence, not the hot path);
+    ``landmark_rows``/``landmark_gather`` hand the landmark backend one
+    tensor on the first device.  The ladder floor must divide over the
+    shards, or construction raises.
+    """
+
+    def __init__(self, emb_dim: int, mesh, capacity_floor: int = CAP_FLOOR):
+        floor_cap = cap_bucket(max(1, capacity_floor))
+        if floor_cap % mesh.n_devices:
+            raise ValueError(
+                f"store capacity floor {floor_cap} not divisible by mesh device count "
+                f"{mesh.n_devices}; the doubling ladder keeps rows divisible only for "
+                "power-of-two meshes up to the floor")
+        self.mesh = mesh
+        self.device = mesh.device
+        self.emb_dim = emb_dim
+        self.dp = dim_pad(emb_dim)
+        self.count = 0
+        self.grows = 0
+        self.appends = 0
+        self._adopt(np.zeros((floor_cap, self.dp), np.float32), np.zeros(floor_cap, bool),
+                    np.full(floor_cap, -np.inf, np.float32))
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.n_devices
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.emb_s[0].shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.rows_per_shard * self.n_shards
+
+    def _whole(self, parts) -> torch.Tensor:
+        return torch.cat([t.to(self.device) for t in parts])
+
+    @property
+    def emb(self) -> torch.Tensor:
+        return self._whole(self.emb_s)
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self._whole(self.valid_s)
+
+    @property
+    def kth(self) -> torch.Tensor:
+        return self._whole(self.kth_s)
+
+    def device_bytes(self) -> int:
+        """The largest shard's resident bytes: ``1/D`` of the unsharded
+        ladder's."""
+        return max(sum(t.numel() * t.element_size() for t in parts)
+                   for parts in zip(self.emb_s, self.valid_s, self.kth_s))
+
+    def host_state(self) -> dict[str, np.ndarray]:
+        return {k: np.concatenate([t.cpu().numpy() for t in getattr(self, f"{k}_s")])
+                for k in ("emb", "valid", "kth")}
+
+    def state_arrays(self) -> dict[str, torch.Tensor]:
+        return {"emb": self.emb, "valid": self.valid, "kth": self.kth}
+
+    def _adopt(self, emb_h, valid_h, kth_h) -> None:
+        """Land full host arrays in the shards (backfill and restore:
+        elastic across mesh shapes, since the arrays are whole)."""
+        from repro_torch.core.distributed import shard_rows
+
+        self.emb_s = shard_rows(self.mesh, np.asarray(emb_h, np.float32))
+        self.valid_s = shard_rows(self.mesh, np.asarray(valid_h, bool))
+        self.kth_s = shard_rows(self.mesh, np.asarray(kth_h, np.float32))
+
+    def _owners(self, ids: np.ndarray):
+        """(shard, local rows, positions in ``ids``) for each shard owning
+        some of ``ids``; out-of-range ids are dropped."""
+        ids = np.asarray(ids, np.int64)
+        pos = np.flatnonzero(self._in_range(ids))
+        m = self.rows_per_shard
+        owner = ids[pos] // m
+        for s in np.unique(owner):
+            sel = pos[owner == s]
+            yield int(s), ids[sel] - s * m, sel
+
+    def ensure(self, rows: int) -> None:
+        if rows <= self.capacity:
+            return
+        old_m, new_cap = self.rows_per_shard, cap_bucket(rows)
+        note_shape("grow", self.capacity, new_cap)
+        m = new_cap // self.n_shards
+        parts = {"emb": [], "valid": [], "kth": []}
+        for s, dev in enumerate(self.mesh.devices):
+            emb = torch.zeros((m, self.dp), dtype=torch.float32, device=dev)
+            valid = torch.zeros(m, dtype=torch.bool, device=dev)
+            kth = torch.full((m,), -np.inf, dtype=torch.float32, device=dev)
+            lo, hi = s * m, min((s + 1) * m, self.capacity)
+            for t in range(lo // old_m, -(-hi // old_m)) if hi > lo else ():
+                a, b = max(lo, t * old_m), min(hi, (t + 1) * old_m)
+                emb[a - lo:b - lo].copy_(self.emb_s[t][a - t * old_m:b - t * old_m])
+                valid[a - lo:b - lo].copy_(self.valid_s[t][a - t * old_m:b - t * old_m])
+                kth[a - lo:b - lo].copy_(self.kth_s[t][a - t * old_m:b - t * old_m])
+            parts["emb"].append(emb)
+            parts["valid"].append(valid)
+            parts["kth"].append(kth)
+        self.emb_s, self.valid_s, self.kth_s = (tuple(parts[k]) for k in ("emb", "valid", "kth"))
+        self.grows += 1
+
+    def append(self, embn: np.ndarray):
+        """Append a normalized batch at the next free rows.  Returns
+        ``(batches, batch_valids, base_id)``: the batch's copy on each
+        shard's device (one copy a device, shared by the shards on it)."""
+        m = len(embn)
+        mp = batch_bucket(max(m, 1))
+        base_id = self.count
+        self.ensure(base_id + mp)
+        note_shape("append", self.capacity, mp)
+        block = np.zeros((mp, self.dp), np.float32)
+        block[:m, : self.emb_dim] = embn
+        block_t, bvalid_t = torch.from_numpy(block), torch.from_numpy(np.arange(mp) < m)
+        moved = {d: (block_t.to(d, copy=True), bvalid_t.to(d, copy=True))
+                 for d in self.mesh.distinct}  # move the batch
+        rows = self.rows_per_shard
+        for s in range(base_id // rows, -(-(base_id + mp) // rows)):
+            a, b = max(base_id, s * rows), min(base_id + mp, (s + 1) * rows)
+            batch, bvalid = moved[self.mesh.devices[s]]
+            self.emb_s[s][a - s * rows:b - s * rows].copy_(batch[a - base_id:b - base_id])
+            self.valid_s[s][a - s * rows:b - s * rows].copy_(bvalid[a - base_id:b - base_id])
+            self.kth_s[s][a - s * rows:b - s * rows].fill_(-np.inf)
+        self.count += m
+        self.appends += 1
+        return (tuple(moved[d][0] for d in self.mesh.devices),
+                tuple(moved[d][1] for d in self.mesh.devices), base_id)
+
+    def landmark_rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows ``[lo, hi)`` as one tensor on the mesh's first device (the
+        range may span shards)."""
+        rows = self.rows_per_shard
+        parts = [self.emb_s[s][max(lo, s * rows) - s * rows:min(hi, (s + 1) * rows) - s * rows]
+                 for s in range(lo // rows, -(-hi // rows))] if hi > lo else []
+        if not parts:
+            return torch.zeros((0, self.dp), dtype=torch.float32, device=self.device)
+        return torch.cat([t.to(self.device) for t in parts])
+
+    def landmark_gather(self, ids: np.ndarray) -> torch.Tensor:
+        """The sampled landmark rows by global id, gathered in their owner
+        shards, as one tensor on the mesh's first device."""
+        ids = np.asarray(ids, np.int64)
+        out = torch.zeros((len(ids), self.dp), dtype=torch.float32, device=self.device)
+        for s, local, sel in self._owners(ids):
+            got = self.emb_s[s][self._put_on(local, s)]
+            out[torch.from_numpy(sel).to(self.device)] = got.to(self.device)
+        return out
+
+    def _put_on(self, a: np.ndarray, s: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.mesh.devices[s])
+
+    def kill(self, ids: np.ndarray) -> None:
+        if not len(ids):
+            return
+        note_shape("kill", self.capacity, batch_bucket(len(ids)))
+        for s, local, _ in self._owners(ids):
+            self.valid_s[s][self._put_on(local, s)] = False
+
+    def set_kth(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        if not len(rows):
+            return
+        note_shape("set_kth", self.capacity, batch_bucket(len(rows)))
+        vals = np.asarray(vals, np.float32)
+        for s, local, sel in self._owners(rows):
+            self.kth_s[s][self._put_on(local, s)] = self._put_on(vals[sel], s)

@@ -18,21 +18,31 @@ on top of the device-resident ``EmbeddingStore`` and the argkmin kernel:
 Canonical re-selection and list merges stay in ``DynamicGraph``; the
 ingestor only nominates supersets, which is why its streams are
 bit-identical to the ``HostKNNSelector`` path (``graph.knn`` docstring).
+
+With a mesh (``DeviceIngestor(..., mesh=...)``) the ingestor builds the
+row-sharded store and the candidate search moves the batch to the shards:
+``core.distributed.StoreShardPlan`` (one per capacity rung) runs one
+argkmin launch a shard at its global row offset and merges the lists, so
+the candidates and the displacement mask are the single-device ones and
+sharded streams stay bit-identical to single-device ones.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.graph.dynamic import Selection
-from repro_torch.graph.knn import selection_slack
+from repro_torch.graph.knn import SELECT_MARGIN, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates
 
 from .embedding_store import (
     BATCH_FLOOR,
     CAP_FLOOR,
     EmbeddingStore,
+    ShardedEmbeddingStore,
     batch_bucket,
     cap_bucket,
     note_shape,
@@ -55,7 +65,7 @@ def _rungs(floor: int, hi: int) -> int:
     return n
 
 
-def ingest_ladder_bound(max_rows: int, max_batch: int) -> int:
+def ingest_ladder_bound(max_rows: int, max_batch: int, *, sharded: bool = False) -> int:
     """A-priori bound on ``ingest_cache_size()`` for a stream that never
     exceeds ``max_rows`` total rows or ``max_batch`` rows per batch.
 
@@ -63,6 +73,8 @@ def ingest_ladder_bound(max_rows: int, max_batch: int) -> int:
     count is bounded by the ladder cross-product, independent of the
     stream's length.  Scatter updates (kill / set_kth) can touch up to the
     whole store, hence the ``max_rows`` rung count for those terms.
+    ``sharded=True`` adds the sharded sweep's (capacity rung, batch bucket)
+    pairs.
     """
     n_cap = _rungs(CAP_FLOOR, cap_bucket(max_rows))
     n_b = _rungs(BATCH_FLOOR, batch_bucket(max(max_batch, 1)))
@@ -73,6 +85,7 @@ def ingest_ladder_bound(max_rows: int, max_batch: int) -> int:
         + (n_cap - 1)    # grow
         + n_cap * n_s    # kill
         + n_cap * n_s    # set_kth
+        + (n_cap * n_b if sharded else 0)  # the sharded sweep
     )
 
 
@@ -84,13 +97,31 @@ class DeviceIngestor:
     ``attach`` adopts a non-empty graph's rows; afterwards the store tracks
     the graph batch for batch.  ``store=`` adopts a prepared store (a
     hand-over from the reference, ``state.store_from_reference``).
+    ``mesh=`` (a ``core.distributed.DeviceMesh``) builds the row-sharded
+    store; a mesh whose shard count does not divide the capacity ladder
+    gets the single-device store on the mesh's first device, with a
+    warning, as in the reference.
     """
 
     def __init__(self, emb_dim: int, *, capacity_floor: int = CAP_FLOOR,
                  device: str | torch.device | None = None,
-                 store: EmbeddingStore | None = None):
-        self.store = (store if store is not None else
-                      EmbeddingStore(emb_dim, capacity_floor=capacity_floor, device=device))
+                 store: EmbeddingStore | None = None, mesh=None):
+        self.mesh = None
+        if mesh is not None:
+            if cap_bucket(max(1, capacity_floor)) % mesh.n_devices:
+                warnings.warn(
+                    f"mesh device count {mesh.n_devices} does not divide the store "
+                    "capacity ladder; using the single-device embedding store on the "
+                    "mesh's first device", stacklevel=2)
+            else:
+                self.mesh = mesh
+            device = mesh.device
+        if store is not None:
+            self.store = store
+        elif self.mesh is not None:
+            self.store = ShardedEmbeddingStore(emb_dim, self.mesh, capacity_floor=capacity_floor)
+        else:
+            self.store = EmbeddingStore(emb_dim, capacity_floor=capacity_floor, device=device)
         self.selects = 0
 
     def attach(self, g) -> None:
@@ -120,10 +151,19 @@ class DeviceIngestor:
         batch, bvalid, bid = self.store.append(np.ascontiguousarray(embn_new, np.float32))
         assert bid == base_id
         s = self.store
-        note_shape("argkmin", s.capacity, batch.shape[0])
-        val, idx, disp = argkmin_candidates(
-            s.emb, s.valid, s.kth, batch, bvalid, base_id,
-            selection_slack(g.emb_dim), k=g.k)
+        if self.mesh is not None:
+            from repro_torch.core.distributed import build_store_shard_plan
+
+            note_shape("argkmin_sharded", s.capacity, batch[0].shape[0])
+            plan = build_store_shard_plan(self.mesh, (s.capacity, s.dp))
+            val, idx, disp = plan.sweep(s.emb_s, s.valid_s, s.kth_s, batch, bvalid, base_id,
+                                        selection_slack(g.emb_dim),
+                                        topk=min(g.k + SELECT_MARGIN, s.capacity))
+        else:
+            note_shape("argkmin", s.capacity, batch.shape[0])
+            val, idx, disp = argkmin_candidates(
+                s.emb, s.valid, s.kth, batch, bvalid, base_id,
+                selection_slack(g.emb_dim), k=g.k)
         m = len(new_ids)
         # the padded blocks come back whole and are sliced on the host
         val = val.cpu().numpy()[:m]

@@ -16,6 +16,12 @@ The order is (w desc, store row asc) everywhere: every partial list and
 every merge keeps it, so mass-duplicate inputs give the same candidates on
 every path.  Empty slots are ``(-inf, -1)``.
 
+A store block may be one shard of a row-sharded store: ``row0`` is the
+global id of its row 0 (0 for a whole store), and candidate ids, the
+self-match and the displacement test are in global ids.  ``shard_sweep``
+runs one launch per shard at its ``row0`` and merges the per-shard lists
+(the counterpart of the reference's ``shard_sweep_body``).
+
 ``argkmin_ref`` is the plain torch version.  Each dot product sums D terms
 in order, one rounded multiply and one rounded add per term, and ``w`` is
 ``(s + 1) * 0.5``; the CUDA kernel (``csrc/argkmin.cu``) does the same ops in
@@ -72,11 +78,12 @@ def _weights(batch: torch.Tensor, tile: torch.Tensor) -> torch.Tensor:
 
 
 def argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, *,
-                topk: int, tile_rows: int | None = None):
+                topk: int, tile_rows: int | None = None, row0: int = 0):
     """Plain torch version: returns ``(val (M, topk) f32, idx (M, topk)
-    i32, disp (C,) bool)``.  ``tile_rows`` sets the store tile it walks
-    (default: as many rows as keep an (M, tile) temporary at 2**26
-    elements); the result does not depend on it."""
+    i32, disp (C,) bool)``.  ``row0`` is the global id of the store's row 0.
+    ``tile_rows`` sets the store tile it walks (default: as many rows as
+    keep an (M, tile) temporary at 2**26 elements); the result does not
+    depend on it."""
     c, _ = store.shape
     m = batch.shape[0]
     dev = store.device
@@ -89,7 +96,7 @@ def argkmin_ref(store, valid, kth, batch, batch_valid, base_id, slack, *,
     disp = torch.zeros(c, dtype=torch.bool, device=dev)
     for lo in range(0, c, tile):
         hi = min(lo + tile, c)
-        rows = torch.arange(lo, hi, device=dev)
+        rows = torch.arange(lo + int(row0), hi + int(row0), device=dev)  # global ids
         w = _weights(batch, store[lo:hi])
         if m:
             colmax = torch.where(batch_valid[:, None], w, neg).amax(dim=0)
@@ -138,7 +145,7 @@ def resident_blocks(d: int, tkb: int, device_index: int) -> int:
     return n
 
 
-def _check(store, valid, kth, batch, batch_valid, base_id):
+def _check(store, valid, kth, batch, batch_valid, base_id, row0=0):
     dev = store.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"argkmin_candidates: unsupported device {dev}")
@@ -160,6 +167,8 @@ def _check(store, valid, kth, batch, batch_valid, base_id):
             raise ValueError(f"{name} must be contiguous")
     if not 0 <= int(base_id) <= 2**31 - 1 - m:
         raise ValueError(f"base_id={base_id} out of range")
+    if not 0 <= int(row0) <= 2**31 - 1 - c:
+        raise ValueError(f"row0={row0} out of range")
     if max(c * d, m * d) >= 2**31:
         raise ValueError("argkmin_candidates indexes with 32-bit ints")
 
@@ -188,13 +197,15 @@ def argkmin_candidates(store, valid, kth, batch, batch_valid, base_id, slack, *,
     return argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, topk=topk)
 
 
-def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, topk: int):
+def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, topk: int,
+                   row0: int = 0):
     """The kernel on CUDA tensors for any ``1 <= topk <= TK_MAX``:
-    ``(val, idx, disp)`` as ``argkmin_ref`` gives them.  Bumps
-    ``argkmin_candidates.launches`` once a call."""
+    ``(val, idx, disp)`` as ``argkmin_ref`` gives them, the store's row 0
+    at global id ``row0``.  Bumps ``argkmin_candidates.launches`` once a
+    call."""
     from repro_torch.kernels._build import load_library
 
-    _check(store, valid, kth, batch, batch_valid, base_id)
+    _check(store, valid, kth, batch, batch_valid, base_id, row0)
     if store.device.type != "cuda":
         raise ValueError(f"argkmin_launch runs the CUDA kernel; store is on {store.device}")
     c, d = store.shape
@@ -222,7 +233,7 @@ def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, top
         store.data_ptr(), valid.data_ptr(), kth.data_ptr(), batch.data_ptr(),
         batch_valid.data_ptr(), val.data_ptr(), idx.data_ptr(), disp.data_ptr(),
         pval.data_ptr(), pidx.data_ptr(), pcol.data_ptr(), c, d, m, topk, geo["tkb"],
-        geo["splits"], int(base_id), float(slack),
+        geo["splits"], int(base_id), int(row0), float(slack),
         torch.cuda.current_stream(dev).cuda_stream)
     lib.check(code, "argkmin launch")
     argkmin_candidates.launches += 1
@@ -230,3 +241,33 @@ def argkmin_launch(store, valid, kth, batch, batch_valid, base_id, slack, *, top
 
 
 argkmin_candidates.launches = 0  # kernel launches since the last reset
+
+
+def shard_sweep(stores, valids, kths, batches, batch_valids, base_id, slack, *, topk: int):
+    """The move-the-batch sweep over a row-sharded store (the reference's
+    ``shard_sweep_body``).
+
+    Shard s holds global rows ``[s·c_loc, (s+1)·c_loc)`` as ``stores[s]``,
+    ``valids[s]``, ``kths[s]`` on its device, and ``batches[s]`` /
+    ``batch_valids[s]`` are the batch's copy there.  Each shard runs one
+    pass at ``row0 = s·c_loc`` for its top-``tk_loc`` (``min(topk,
+    c_loc)``): the plain version for CPU tensors, the kernel for CUDA
+    tensors (one launch a shard).  The lists are gathered onto the first
+    shard's device and merged by ``merge_topk``: a stable sort over columns
+    in shard order, each list in (w desc, id asc), so ties go to the lowest
+    global id, as in one pass over the whole store.  The displacement masks
+    are concatenated in shard order.  Returns ``(val (M, topk), idx (M,
+    topk), disp (C,))`` on the first shard's device, the bits of one pass
+    over the unsharded store."""
+    c_loc = stores[0].shape[0]
+    tk_loc = min(topk, c_loc)
+    home = stores[0].device
+    vals, idxs, disps = [], [], []
+    for s, args in enumerate(zip(stores, valids, kths, batches, batch_valids)):
+        run = argkmin_ref if args[0].device.type == "cpu" else argkmin_launch
+        val, idx, disp = run(*args, base_id, slack, topk=tk_loc, row0=s * c_loc)
+        vals.append(val.to(home, non_blocking=True))
+        idxs.append(idx.to(home, non_blocking=True))
+        disps.append(disp.to(home, non_blocking=True))
+    mval, midx = merge_topk(torch.cat(vals, dim=1), torch.cat(idxs, dim=1), topk)
+    return mval, midx, torch.cat(disps)

@@ -35,8 +35,14 @@ every size (the reference's TPU row threshold was never measured on a
 GPU), ``ref`` on the CPU.  ``bsr`` is never auto-eligible here: the
 reference admits it on a TPU only, above a tile fill
 (``bsr_auto_fill_min``) that no measurement on the H100 has made a case
-for.  The port reads no environment variable to change that
-(``REPRO_BACKEND`` is not ported).
+for.  The ``REPRO_BACKEND`` environment variable replaces the auto default
+(a fleet-wide hint): an explicitly passed backend still wins, and a hint
+naming a backend with no sharded form degrades to the auto scan for a
+sharded solve instead of failing.
+
+Every backend declares whether it has a mesh form (``sharded``); all four
+do, over ``core.distributed``, under either transport.  ``run_propagation(mesh=...)`` or
+``shard_plan=`` takes that arm.
 
 ``propagate_full_ell`` is ITLP's iteration (every row, every sweep) through
 the same sweep kernel.
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -77,6 +84,7 @@ class ProblemInfo:
     device_type: str  # "cuda" or "cpu"
     num_rows: int | None = None
     block_fill: float | None = None
+    sharded: bool = False
     landmark_ready: bool = False
 
 
@@ -88,6 +96,7 @@ class BackendSpec:
     auto_priority: int  # auto scans high → low
     auto_eligible: Callable[[ProblemInfo], bool]
     run: Callable  # (problem, f0, frontier0, *, delta, max_iters) -> PropagateResult
+    sharded: bool = True  # has a core.distributed per-shard update body
     # tile edge per device type, for a backend that tiles its aggregation
     # (its ``run`` then also takes slot=, num_slots=, block_size=)
     block_size: Callable[[str], int] | None = None
@@ -133,32 +142,57 @@ def _by_priority() -> list[BackendSpec]:
     return sorted(_REGISTRY.values(), key=lambda s: -s.auto_priority)
 
 
-def select_backend(backend: str | None = None,
-                   problem: PropagationProblem | None = None,
-                   *,
-                   device: str | torch.device | None = None,
-                   num_rows: int | None = None,
-                   block_fill: float | None = None,
-                   landmark_ready: bool = False) -> str:
-    """Resolve ``backend`` (None/"auto" → registry scan on ``device``'s
-    type, which defaults to the problem's device, else ``cuda``)."""
-    if backend not in (None, "auto"):
-        return backend_spec(backend).name
-    if device is None:
-        device = problem.device if problem is not None else "cuda"
-    if num_rows is None and problem is not None:
-        num_rows = problem.num_unlabeled
-    info = ProblemInfo(device_type=torch.device(device).type, num_rows=num_rows,
-                       block_fill=block_fill, landmark_ready=landmark_ready)
+def _auto_select(info: ProblemInfo) -> str:
     for spec in _by_priority():
+        if info.sharded and not spec.sharded:
+            continue
         if spec.auto_eligible(info):
             return spec.name
     raise RuntimeError("no auto-eligible backend registered")  # pragma: no cover
 
 
+def select_backend(backend: str | None = None,
+                   problem: PropagationProblem | None = None,
+                   *,
+                   device: str | torch.device | None = None,
+                   num_rows: int | None = None,
+                   sharded: bool = False,
+                   block_fill: float | None = None,
+                   landmark_ready: bool = False,
+                   use_env: bool = True) -> str:
+    """Resolve ``backend`` (None/"auto" → the ``REPRO_BACKEND`` hint, else a
+    registry scan on ``device``'s type, which defaults to the problem's
+    device, else ``cuda``).
+
+    An explicit backend wins.  A hint naming a backend with no sharded form
+    degrades to the auto scan when ``sharded`` (a fleet-wide hint must not
+    kill a stream).  ``use_env=False`` skips the hint: the streaming engine
+    reads it once at construction (its row padding and candidate set depend
+    on it), so a mid-stream change of the variable does not reach later
+    rungs."""
+    from_env = False
+    if backend in (None, "auto"):
+        backend = os.environ.get("REPRO_BACKEND", "auto") if use_env else "auto"
+        from_env = backend != "auto"
+    if device is None:
+        device = problem.device if problem is not None else "cuda"
+    if num_rows is None and problem is not None:
+        num_rows = problem.num_unlabeled
+    info = ProblemInfo(device_type=torch.device(device).type, num_rows=num_rows,
+                       block_fill=block_fill, sharded=sharded, landmark_ready=landmark_ready)
+    if backend == "auto":
+        return _auto_select(info)
+    spec = backend_spec(backend)
+    if from_env and sharded and not spec.sharded:
+        return _auto_select(info)
+    return spec.name
+
+
 def backend_candidates(backend: str | None = None, *,
-                       device: str | torch.device = "cuda") -> tuple[str, ...]:
-    """Every backend ``backend`` could resolve to on ``device``.
+                       device: str | torch.device = "cuda",
+                       sharded: bool = False) -> tuple[str, ...]:
+    """Every backend ``backend`` could resolve to on ``device``, the
+    ``REPRO_BACKEND`` hint included.
 
     The streaming engine asks once, at construction, whether ``bsr`` is
     among them; only then does it pad rows to the tile edge and measure
@@ -166,9 +200,15 @@ def backend_candidates(backend: str | None = None, *,
     measured property at its most favourable, ``landmark_ready`` too."""
     if backend not in (None, "auto"):
         return (backend_spec(backend).name,)
+    env = os.environ.get("REPRO_BACKEND", "auto")
+    if env != "auto":
+        spec = backend_spec(env)
+        if not (sharded and not spec.sharded):
+            return (spec.name,)
     optimistic = ProblemInfo(device_type=torch.device(device).type, block_fill=1.0,
-                             landmark_ready=True)
-    return tuple(s.name for s in _by_priority() if s.auto_eligible(optimistic))
+                             sharded=sharded, landmark_ready=True)
+    return tuple(s.name for s in _by_priority()
+                 if (not sharded or s.sharded) and s.auto_eligible(optimistic))
 
 
 def propagate_ell(
@@ -381,9 +421,9 @@ register_backend(BackendSpec(
 
 
 def run_propagation(
-    problem: PropagationProblem,
-    f0: torch.Tensor,
-    frontier0: torch.Tensor,
+    problem,
+    f0,
+    frontier0,
     *,
     delta: float = 1e-4,
     max_iters: int = 100_000,
@@ -393,6 +433,10 @@ def run_propagation(
     slot: torch.Tensor | np.ndarray | None = None,
     num_slots: int | None = None,
     block_size: int | None = None,
+    mesh=None,
+    shard_plan=None,
+    transport: str | None = None,
+    export_max: int | None = None,
 ) -> PropagateResult:
     """Single propagation entry point: the solve runs on ``device``
     (``None`` → ``cuda``), with the inputs moved there, through the
@@ -405,7 +449,30 @@ def run_propagation(
     tiled backend (``bsr``): the per-edge tile-slot map of a problem
     already in component order and its slot budget, which
     ``StreamEngine`` derives per Δ_t; without them ``bsr`` orders and lays
-    out the problem itself."""
+    out the problem itself.
+
+    ``mesh`` (a ``core.distributed.DeviceMesh``) takes the sharded arm:
+    the backend's update body runs per shard over the transport
+    ``transport`` (``"allgather"``, the default, or ``"halo"``, which
+    needs ``export_max`` and the rows already in a halo export-prefix
+    layout, ``core.snapshot.apply_halo_layout``); the problem's row count
+    must split over the mesh.  ``problem``/``f0``/``frontier0`` are then
+    whole (host or device) arrays, staged over the shards here.  Callers
+    that stream pass a prebuilt ``shard_plan`` (one per rung, which fixes
+    the transport) with a ``core.distributed.MeshProblem`` and per-shard
+    ``f0``/``frontier0``/``slot`` blocks.  ``bsr`` on a mesh needs
+    ``slot``/``num_slots``."""
+    sharded = mesh is not None or shard_plan is not None
+    if transport not in (None, "allgather", "halo"):
+        raise ValueError(f"unknown transport {transport!r}; want 'allgather' or 'halo'")
+    if transport == "halo" and not sharded:
+        raise ValueError("transport='halo' needs mesh= or a shard_plan (single-device "
+                         "solves have no collective)")
+    if sharded:
+        return _run_sharded(problem, f0, frontier0, delta=delta, max_iters=max_iters,
+                            backend=backend, mesh=mesh, plan=shard_plan, transport=transport,
+                            export_max=export_max, slot=slot, num_slots=num_slots,
+                            block_size=block_size)
     dev = resolve_device(device)
     if stream is not None and dev.type != "cuda":
         raise ValueError(f"stream= needs a CUDA device, got {dev}")
@@ -420,3 +487,56 @@ def run_propagation(
                              "(slot=/num_slots=/block_size= are for bsr)")
         return spec.run(problem, f0.to(dev), frontier0.to(dev),
                         delta=delta, max_iters=max_iters, **tiled)
+
+
+def _run_sharded(problem, f0, frontier0, *, delta, max_iters, backend, mesh, plan,
+                 transport, export_max, slot, num_slots, block_size) -> PropagateResult:
+    """``run_propagation``'s mesh arm (see there)."""
+    from repro_torch.core import distributed
+
+    dev = (plan.mesh if plan is not None else mesh).device
+    backend = select_backend(backend, device=dev, num_rows=problem.num_unlabeled,
+                             sharded=True)
+    spec = backend_spec(backend)
+    if not spec.sharded:
+        raise ValueError(f"backend {backend!r} is single-device only; registry sharded "
+                         f"backends: {tuple(s.name for s in _REGISTRY.values() if s.sharded)}")
+    if plan is None:
+        bsr_kw = {}
+        if backend == "bsr":
+            if slot is None or num_slots is None:
+                raise ValueError("sharded backend='bsr' needs slot= and num_slots= (the "
+                                 "per-edge BSR slot map and its tile budget from "
+                                 "kernels.bsr_spmv.ell_bsr_layout)")
+            bsr_kw = dict(block_size=(block_size if block_size is not None
+                                      else bsr_block_size(dev.type)), num_slots=num_slots)
+        shape = tuple(problem.nbr.shape)
+        if transport == "halo":
+            if export_max is None:
+                raise ValueError("transport='halo' without a shard_plan needs export_max "
+                                 "(the per-shard export-prefix length)")
+            plan = distributed.build_stream_halo_plan(mesh, shape, export_max, backend=backend,
+                                                      delta=delta, max_iters=max_iters, **bsr_kw)
+        else:
+            plan = distributed.build_stream_plan(mesh, shape, backend=backend, delta=delta,
+                                                 max_iters=max_iters, **bsr_kw)
+        problem = plan.put_problem(problem.nbr, problem.wgt, problem.wl0, problem.wl1,
+                                   problem.valid)
+        f0, frontier0 = plan.put_row(f0), plan.put_row(frontier0)
+        if slot is not None:
+            slot = plan.put_row(slot)
+    else:
+        # the plan's own settings drive the solve: refuse arguments that
+        # disagree with them
+        want = (backend, float(delta), max_iters,
+                transport if transport is not None else plan.transport)
+        have = (plan.backend, plan.delta, plan.max_iters, plan.transport)
+        if want != have:
+            raise ValueError(f"shard_plan mismatch: called with (backend, delta, max_iters, "
+                             f"transport)={want} but the plan was built with {have}")
+        if backend == "bsr" and num_slots is not None and num_slots != plan.num_slots:
+            raise ValueError(f"shard_plan mismatch: num_slots={num_slots} but the plan "
+                             f"has {plan.num_slots}")
+    if plan.backend == "bsr" and isinstance(slot, np.ndarray):
+        slot = plan.put_row(slot)
+    return plan(problem, f0, frontier0, slot=slot)

@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.distributed import DeviceMesh
 from repro_torch.core.dynlp import DynLP
 from repro_torch.core.stream import StreamEngine
 from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
 from repro_torch.graph.dynamic import DynamicGraph
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
-from repro_torch.kernels.argkmin import argkmin_candidates, argkmin_launch, argkmin_ref
+from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_launch, argkmin_ref,
+                                         shard_sweep)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,
@@ -242,6 +244,69 @@ def test_argkmin_store_below_one_split(card, c, d, m):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("row0,base_id", [(16384, 20000), (16384, 10000), (16384, 40000),
+                                          (114688, 103192), (0, 2900)])
+def test_argkmin_at_a_row_offset(card, row0, base_id):
+    """One store block at global offset ``row0`` (a shard of a row-sharded
+    store), the batch's rows inside the block, before it or after it: the
+    kernel gives the plain version's bits, ids global."""
+    rng = np.random.default_rng(row0 + base_id)
+    c, d, m = 16384, 16, 300
+    args, _ = _argkmin_inputs(rng, c, d, m, c)
+    args = [a.to(card) for a in args]
+    if row0 <= base_id < row0 + c - m:
+        args[0][base_id - row0:base_id - row0 + m] = args[3]
+    slack = selection_slack(d)
+    got = argkmin_launch(*args, base_id, slack, topk=13, row0=row0)
+    want = argkmin_ref(*args, base_id, slack, topk=13, row0=row0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    fin = torch.isfinite(got[0])
+    assert bool(((got[1][fin] >= row0) & (got[1][fin] < row0 + c)).all())
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_shard_sweep_on_the_card(card, dup):
+    """Eight shards of one card: one launch a shard at its row0, the merged
+    lists and the mask equal to one launch over the whole store."""
+    c, d, m = 8192, 16, 500
+    args, base = _argkmin_inputs(np.random.default_rng(5 + dup), c, d, m, 7000, dup)
+    args = [a.to(card) for a in args]
+    slack = selection_slack(d)
+    whole = argkmin_launch(*args, base, slack, topk=13)
+    before = argkmin_candidates.launches
+    cut = [t.view(8, -1, *t.shape[1:]).unbind(0) for t in args[:3]]
+    got = shard_sweep(*(tuple(x.contiguous() for x in part) for part in cut), (args[3],) * 8,
+                      (args[4],) * 8, base, slack, topk=13)
+    torch.cuda.synchronize()
+    assert argkmin_candidates.launches == before + 8
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("transport", ["allgather", "halo"])
+def test_mesh_stream_on_two_shards(card, transport):
+    """A two-shard mesh on the card streams with device ingest to the
+    single-device engine's labels bit for bit; the sweep kernel runs once
+    a shard a sweep, argkmin once a shard an inserting batch."""
+    spec = StreamSpec(total_vertices=1500, batch_size=300, seed=4, class_sep=6.0, noise=0.9)
+    batches = [b for b, _ in gaussian_mixture_stream(spec)]
+    single = StreamEngine(DynamicGraph(emb_dim=spec.emb_dim, k=5), delta=DELTA,
+                          ingest="device")
+    eng = StreamEngine(DynamicGraph(emb_dim=spec.emb_dim, k=5), delta=DELTA, ingest="device",
+                       mesh=DeviceMesh.local(2), transport=transport)
+    assert eng.device == torch.device("cuda", torch.cuda.current_device())
+    for b in batches:
+        single.step(b)
+    sweeps0, ak0 = ell_propagate_step.launches, argkmin_candidates.launches
+    stats = [eng.step(b) for b in batches]
+    assert ell_propagate_step.launches - sweeps0 == 2 * sum(s.iterations for s in stats)
+    assert argkmin_candidates.launches - ak0 == 2 * len(batches)
+    assert eng.graph.f.tobytes() == single.graph.f.tobytes()
+    assert {s.transport for s in stats} <= {"allgather", "halo"}
 
 
 def test_device_ingest_stream_goes_through_argkmin(card):

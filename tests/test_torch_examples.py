@@ -2,7 +2,8 @@
 their inline assertions: ``examples/torch_quickstart.py`` (accuracy
 against the ground truth ≥ 0.99, as the reference's quickstart reaches,
 and agreement with the harmonic optimum > 0.97), ``torch_dynamic_stream.py``
-and ``torch_serve_lp.py``."""
+(its four parts, the 8-shard mesh on the CPU included) and
+``torch_serve_lp.py``."""
 
 import importlib.util
 import pathlib
@@ -35,6 +36,8 @@ def test_dynamic_stream():
     batches, allocations = ex.streaming_demo("cpu", vertices=600, batch_size=30)
     assert batches == 20 and allocations < batches
     assert ex.backend_demo("cpu") < 20 * 1e-3
+    plans, rungs = ex.mesh_demo("cpu", vertices=240, batch_size=40)
+    assert plans == rungs >= 1
 
 
 def test_serve_lp():

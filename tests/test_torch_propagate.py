@@ -166,9 +166,18 @@ def test_registry_auto_selection():
 
 
 def test_env_backend_hint_is_not_read(monkeypatch):
+    """With ``use_env=False`` (how the streaming engine resolves its rungs,
+    having read the hint once at construction) ``REPRO_BACKEND`` is not
+    read.  By default it is, and a hint naming a backend the port does not
+    have fails loudly."""
     monkeypatch.setenv("REPRO_BACKEND", "ell_pallas")
-    assert ops.select_backend(None, device="cpu") == "ref"
-    assert ops.select_backend(None, device="cuda") == "ell_cuda"
+    assert ops.select_backend(None, device="cpu", use_env=False) == "ref"
+    assert ops.select_backend(None, device="cuda", use_env=False) == "ell_cuda"
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.select_backend(None, device="cpu")
+    monkeypatch.setenv("REPRO_BACKEND", "bsr")
+    assert ops.select_backend(None, device="cpu") == "bsr"
+    assert ops.select_backend("ref", device="cpu") == "ref"  # an explicit name wins
 
 
 def test_run_propagation_defaults_to_cuda():

@@ -14,10 +14,11 @@ import torch
 
 from repro.core import snapshot as jsnap
 from repro_torch.core import snapshot as tsnap
-from repro_torch.core.snapshot import LabelView, publish_device_view, query_bucket
+from repro_torch.core.distributed import DeviceMesh, view_sharding
+from repro_torch.core.snapshot import LabelView, ViewSharding, publish_device_view, query_bucket
 from repro_torch.core.stream import StreamEngine
 from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
-from repro_torch.graph.dynamic import UNLABELED, DynamicGraph
+from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 
 torch.set_num_threads(1)
 
@@ -131,16 +132,41 @@ def test_engine_publishes_at_drain_with_commit_id():
 
 
 def test_read_placement():
-    """"auto" and None place the view on the engine's device; any other
-    placement (the reference's mesh replica) raises until it is ported."""
+    """"auto" and None place the view on the engine's device, and on a mesh
+    with no spare card on its ``view_sharding`` (one device here: that
+    device's one view); a device or a ``ViewSharding`` is taken as given,
+    a ViewSharding of several blocks answering as the host view does; a
+    placement that is none of these raises."""
     g = DynamicGraph(emb_dim=4, k=3)
-    for placement in ("auto", None):
-        eng = StreamEngine(g, device="cpu", read_placement=placement)
-        assert eng.device_view().f.device.type == "cpu"
-        assert eng.device_view().stream is None
-    for placement in ("cpu", torch.device("cpu"), "cuda", "replica"):
+    g.apply_batch(BatchUpdate(
+        ins_emb=np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32),
+        ins_labels=np.array([0, 1] + [UNLABELED] * 38, np.int8),
+        del_ids=np.array([5, 7], np.int64)))
+    mesh = DeviceMesh.local(4, device="cpu")
+    for placement, kw in (("auto", {}), (None, {}), ("cpu", {}), (torch.device("cpu"), {}),
+                          ("auto", dict(mesh=mesh)), (view_sharding(mesh), {})):
+        eng = StreamEngine(g, device="cpu", read_placement=placement, **kw)
+        dv = eng.device_view()
+        assert dv.f.device.type == "cpu" and dv.stream is None
+        ids = np.arange(-2, g.num_nodes + 2)
+        for got, want in zip(dv.query(ids), eng.committed_view().query(ids)):
+            assert got.tobytes() == want.tobytes()
+    eng = StreamEngine(g, device="cpu", read_placement=ViewSharding(("cpu",) * 3))
+    dv = eng.device_view()
+    assert len(dv.blocks) == 3 and dv.commit_id == 0 and dv.host is eng.committed_view()
+    ids = np.concatenate([np.arange(-2, g.num_nodes + 2), [10**12, 13, 13]])
+    whole = publish_device_view(eng.committed_view(), "cpu")
+    for cut in (0.5, np.linspace(0, 1, len(ids)).astype(np.float32)):
+        for got, want in zip(dv.query(ids, cut), whole.query(ids, cut)):
+            assert got.tobytes() == want.tobytes()
+    for got, want in zip(dv.query(ids), eng.committed_view().query(ids)):
+        assert got.tobytes() == want.tobytes()
+    for placement in ("replica", "bogus", 3, object()):
         with pytest.raises(ValueError, match="read_placement"):
             StreamEngine(g, device="cpu", read_placement=placement)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StreamEngine(g, device="cpu", read_placement="cuda")
 
 
 def test_new_entry_points_need_a_card_by_default(tmp_path):

@@ -21,6 +21,7 @@ import torch
 from repro.core.stream import StreamEngine as JaxStreamEngine
 from repro.data import synth as jsynth
 from repro.graph import dynamic as jdyn
+from repro_torch.core.distributed import DeviceMesh
 from repro_torch.core.dynlp import DynLP
 from repro_torch.core.propagate import propagate
 from repro_torch.core.snapshot import ladder_size
@@ -403,11 +404,18 @@ def test_constructor_validation_and_deferred_surface():
         _engine(g, ingest_order="random")
     with pytest.raises(ValueError, match="unknown backend"):
         _engine(g, backend="ell_pallas")
-    with pytest.raises(TypeError):
+    # a mesh is a DeviceMesh: any other value is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _engine(g, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        _engine(g, mesh=8)
+    mesh = DeviceMesh.local(2, device="cpu")
+    eng = _engine(DynamicGraph(emb_dim=4, k=3), mesh=mesh)
+    assert eng.mesh is mesh and eng.device == mesh.device
+    assert eng.transport_summary()["mesh_devices"] == 2
+    with pytest.raises(ValueError, match="differs from the mesh"):
+        StreamEngine(g, mesh=mesh, device="meta")
     eng = _engine(g)
-    # the read, persistence and landmark surface is ported; the mesh
-    # (above) is not
     for name in ("device_view", "checkpoint", "checkpoint_state", "restore"):
         assert callable(getattr(eng, name)), name
     if not torch.cuda.is_available():
