@@ -159,6 +159,34 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``transport="halo"`` over path 1's first two batches (10,000 vertices),
    beside a single-device engine with the same order: graphs and labels
    bitwise after each batch, at least one batch on the halo collective.
+13. Path 8, the LM serving slice.  (a) ``PseudoLabelPipeline(k=5,
+   delta=1e-4)`` on the card curates ``--vertices`` documents (20,000 by
+   default) in 4 waves of 64-token documents over qwen3-0.6b's vocabulary
+   of 151,936, 2% labeled (``data.synth.make_documents``, the generator of
+   ``examples/semi_supervised_lm.py``): sweep launches equal the waves'
+   sweeps, the last wave's solve run again with ``backend="ref"`` agrees
+   within 20·δ, the pseudo-label accuracy and ``select(1, 0.7)``'s purity
+   exceed 0.9.  (b) ``build_model(get_config("qwen3-0.6b"))`` at its full
+   published config (28 layers, d_model 1024, GQA 16/8, head_dim 128,
+   qk-norm, vocab 151,936; bf16 weights from a seeded generator) behind
+   ``ServeEngine(max_batch=8, s_max=256)``: 24 requests whose prompts are
+   16–64-token prefixes of curated documents, ``max_new`` 16–64.  Every
+   request finishes with its ``max_new`` tokens; the logits at every
+   generated position agree with the plain fp32 forward (the same weights
+   upcast, dense attention, no cache, no TF32, teacher-forced over prompt
+   and output) within ``LM_TOL``, the greedy tokens equal its argmax
+   wherever its top-2 margin exceeds twice that, and the same serving with
+   the KV cache rounded through fp8 (8 requests) must FAIL the tolerance.
+   It prints the pooled decode step's median and p99 ms, tokens a second
+   at 8 slots, prefill ms a prompt token, a decode step's kernel time from
+   ``torch.profiler`` beside its bound, the bytes of weights and cache and
+   ``max_memory_allocated``.  (c) ``prefill`` at B = 1, S = 4,096 through
+   the chunked attention (q_chunk 1024, k_chunk 2048, the causal skip)
+   against the dense attention and the fp32 forward, then its cache placed
+   in an ``init_cache(1, 4112)`` and 16 greedy tokens decoded through it,
+   each step held against the fp32 forward of its prefix; both prefill
+   times beside their bound.  Path 8 runs none of the five kernels but the
+   sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -202,7 +230,10 @@ from repro_torch.core.snapshot import build_problem  # noqa: E402
 from repro_torch.core.stlp import STLP, harmonic_solve  # noqa: E402
 from repro_torch.core.stream import StreamEngine  # noqa: E402
 from repro_torch.core.init_labels import supernode_init  # noqa: E402
-from repro_torch.data.synth import StreamSpec, accuracy, gaussian_mixture_stream  # noqa: E402
+from repro_torch.configs.registry import get_config, override  # noqa: E402
+from repro_torch.data.pipeline import PseudoLabelPipeline  # noqa: E402
+from repro_torch.data.synth import (StreamSpec, accuracy, gaussian_mixture_stream,  # noqa: E402
+                                    make_documents)
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph  # noqa: E402
 from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
 from repro_torch.graph import partition  # noqa: E402
@@ -223,6 +254,8 @@ from repro_torch.kernels import landmark_propagate as landmark_module  # noqa: E
 from repro_torch.kernels.landmark_propagate import ASSIGN_CHUNK, LandmarkConfig  # noqa: E402
 from repro_torch.kernels.ops import (propagate_full_ell, run_propagation,  # noqa: E402
                                      select_backend)
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
 from repro_torch.serving.lp_service import LPService  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
@@ -2505,6 +2538,324 @@ def phase_mesh_halo(vertices, batch_size, n_batches=2):
     return dict(launches=launches, halo_batches=summ["halo_batches"])
 
 
+# --------------------------------------------------------------------- #
+# the LM serving slice (path 8)
+# --------------------------------------------------------------------- #
+LM_ARCH = "qwen3-0.6b"  # at its full published config (src/repro_torch/configs/qwen3_0_6b.py)
+LM_WAVES, LM_SEQ = 4, 64  # path 8's documents: 4 waves of 64-token documents
+LM_REQUESTS, LM_POOL, LM_S_MAX = 24, 8, 256
+LM_CONTROL_REQUESTS = 8  # the fp8-cache control serves the first pool load again
+LM_LONG, LM_LONG_DECODE = 4096, 16  # (c): the chunked prefill, then decoding through it
+# The engine's bf16 logits against the plain fp32 forward of the same weights,
+# max |diff| over every logit of every generated position.  Both use the same
+# bf16 weights, so the gap is the bf16 activations' and cache's rounding (rel
+# 2^-9 each) compounded over 28 layers: 0.086-0.110 measured on the H100 (PR
+# 19), about 3.5 bf16 ULPs of a logit in [4, 8).  0.16 leaves 1.45x of that;
+# the same run with the KV cache rounded through fp8 (3 mantissa bits) measured
+# 0.244, 1.5x above it, so a cache kept in fp8 fails.
+LM_TOL = 0.16
+LM_FP8 = torch.float8_e4m3fn  # the negative control rounds the KV cache through it
+BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
+
+
+def lm_fp32_reference(model):
+    """The plain fp32 forward: the same weights upcast, dense attention, no
+    cache, no batching, fp32 matmuls with no TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    ref = build_model(override(model.cfg, attn_impl="dense")).float()
+    ref.load_state_dict(model.state_dict())
+    return ref
+
+
+def lm_gap(engine_rows, ref_logits):
+    """max |engine − fp32| over every logit of the rows, and the rows where
+    the fp32 top-2 margin exceeds twice the tolerance (two logits each off by
+    at most the tolerance can swap only inside it)."""
+    err = float((engine_rows.float() - ref_logits).abs().max())
+    top2 = ref_logits.topk(2, dim=-1).values
+    return err, (top2[:, 0] - top2[:, 1]), ref_logits.argmax(-1)
+
+
+def record_engine(engine, round_cache=None):
+    """Wrap ``engine``'s ``submit``/``step``/``_decode`` (the instance's, as
+    path 1 wraps ``run_propagation``): keep the logits row each request's
+    token was chosen from, the host time of every submit and pooled step,
+    and the slots a step decoded.  ``round_cache`` rounds the cache every
+    decode call sees (the fp8 control)."""
+    rec = dict(rows={}, step_ms=[], active=[], submit_ms=[], prompt_tokens=0)
+    decode, submit, step = engine._decode, engine.submit, engine.step
+    last = {}
+
+    def dec(cache, batch):
+        if round_cache is not None:
+            cache = {key: round_cache(leaf) for key, leaf in cache.items()}
+        last["logits"], new = decode(cache, batch)
+        return last["logits"], new
+
+    def sub(req):
+        t0 = time.perf_counter()
+        ok = submit(req)  # ends in a host sync: the first token's argmax
+        if ok:
+            rec["submit_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["prompt_tokens"] += len(req.prompt)
+            slot = next(i for i, r in enumerate(engine.slots) if r is req)
+            rec["rows"][req.uid] = [last["logits"][slot, -1].float()]
+        return ok
+
+    def stp():
+        active = [(i, r) for i, r in enumerate(engine.slots) if r is not None]
+        t0 = time.perf_counter()
+        step()  # ends in a host sync: the argmax to numpy
+        if active:
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["active"].append(len(active))
+            for i, r in active:
+                rec["rows"][r.uid].append(last["logits"][i, -1].float())
+
+    engine._decode, engine.submit, engine.step = dec, sub, stp
+    return rec
+
+
+def lm_requests(curated, n, seed):
+    """``n`` requests whose prompts are prefixes of 16–64 tokens of curated
+    documents, ``max_new`` 16–64, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    docs = rng.choice(len(curated), n, replace=False)
+    lens, news = rng.integers(16, 65, n), rng.integers(16, 65, n)
+    return [Request(uid=i, prompt=curated[d][:lens[i]].copy(), max_new=int(news[i]))
+            for i, d in enumerate(docs)]
+
+
+def serve_and_hold(model, ref, curated, n, round_cache=None):
+    """Serve ``n`` requests through a fresh ``ServeEngine``; return the
+    engine, its record and, per request, the gap to the fp32 forward."""
+    engine = ServeEngine(model, max_batch=LM_POOL, s_max=LM_S_MAX)
+    rec = record_engine(engine, round_cache)
+    reqs = lm_requests(curated, n, seed=1)
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    rec["run_s"] = time.perf_counter() - t0
+    require(len(done) == n and all(len(r.out) == r.max_new for r in reqs),
+            f"path 8: {len(done)} of {n} requests finished with their max_new tokens")
+    gaps = []
+    for r in reqs:
+        toks = np.concatenate([r.prompt, np.asarray(r.out[:-1])])
+        want = ref(torch.as_tensor(toks[None], dtype=torch.int64, device=ref.device))[0]
+        want = want[len(r.prompt) - 1:]  # the positions that chose out[0..max_new-1]
+        got = torch.stack(rec["rows"][r.uid])
+        require(got.shape == want.shape and torch.isfinite(got).all(),
+                f"path 8: request {r.uid}'s logits {tuple(got.shape)} vs {tuple(want.shape)}")
+        err, margin, ref_tok = lm_gap(got, want)
+        gaps.append(dict(err=err, margin=margin, ref_tok=ref_tok,
+                         tok=torch.as_tensor(r.out, device=ref.device)))
+    return engine, rec, reqs, gaps
+
+
+def phase_curation(docs, card, waves=LM_WAVES):
+    """Path 8 (a): ``PseudoLabelPipeline`` on the card (``DynLP`` with the
+    default backend, ``ell_cuda``) over ``docs`` documents in ``waves``."""
+    vocab = get_config(LM_ARCH).vocab
+    pipe = PseudoLabelPipeline(k=5, delta=DELTA)
+    require(pipe.lp.device.type == "cuda", f"pipeline on {pipe.lp.device}")
+    last = {}
+
+    def recording(problem, f0, frontier0, **kw):
+        res = run_propagation(problem, f0, frontier0, **kw)
+        last.update(problem=problem, f0=f0.clone(), frontier0=frontier0.clone(), kw=kw,
+                    res=res)
+        return res
+
+    rng = np.random.default_rng(0)
+    truth, sweeps = {}, 0
+    dynlp_module.run_propagation = recording
+    try:
+        for wave in range(waves):
+            toks, labels, cls = make_documents(rng, docs // waves, LM_SEQ, vocab)
+            base = pipe.graph.num_nodes
+            t0 = time.perf_counter()
+            st = pipe.ingest(toks, labels)
+            wall = (time.perf_counter() - t0) * 1e3
+            truth.update({base + i: int(c) for i, c in enumerate(cls)})
+            sweeps += st.lp_iterations
+            print(f"   [{card}] wave {wave}: {st.num_docs} documents, {st.lp_iterations} "
+                  f"iterations, DynLP step {st.lp_ms:.1f} ms, ingest {wall:.1f} ms", flush=True)
+    finally:
+        dynlp_module.run_propagation = run_propagation
+    kw = dict(last["kw"], backend="ref")
+    ref = run_propagation(last["problem"], last["f0"], last["frontier0"], **kw)
+    u = int(last["problem"].valid.sum())
+    diff = float((last["res"].f[:u] - ref.f[:u]).abs().max())
+    quality = pipe.label_quality(truth)
+    ids, curated = pipe.select(target_class=1, confidence=0.7)
+    purity = float(np.mean([truth[i] == 1 for i in ids]))
+    print(f"   last wave re-solved with backend='ref': max|dF|={diff:.1e} (bound {TOL:.0e}); "
+          f"pseudo-label accuracy {quality:.4f}; select(1, 0.7): {len(ids)} documents, "
+          f"purity {purity:.4f}")
+    require(diff <= TOL, "path 8: ell_cuda vs ref beyond 20*delta")
+    require(quality > 0.9 and purity > 0.9, f"path 8: accuracy {quality}, purity {purity}")
+    require(len(ids) >= LM_REQUESTS, f"path 8: {len(ids)} curated documents")
+    return dict(sweeps=sweeps, curated=curated, accuracy=quality, purity=purity)
+
+
+def phase_lm_serve(curated, card):
+    """Path 8 (b): ``ServeEngine(max_batch=8, s_max=256)`` on qwen3-0.6b at
+    its full published config, 24 requests cut from the curated documents,
+    every generated position's logits held against the plain fp32 forward;
+    then the same with the KV cache rounded through fp8, which must fail
+    the tolerance."""
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # ArchConfig.num_params counts the matrices and the layers' two norms; the
+    # model also holds final_norm and, with qk-norm, two head_dim scales a layer
+    scales = cfg.d_model + (2 * cfg.hd * cfg.n_layers if cfg.qk_norm else 0)
+    require(n_params == cfg.num_params() + scales and model.embed.dtype == torch.bfloat16,
+            f"path 8: {n_params} parameters, ArchConfig says {cfg.num_params()} + {scales}")
+    print(f"   {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv, head_dim {cfg.hd}, qk-norm {cfg.qk_norm}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {n_params:,} parameters, {weight_bytes:,} B of bf16 weights, "
+          f"drawn in {build_s:.1f} s")
+    ref = lm_fp32_reference(model)
+    engine, rec, reqs, gaps = serve_and_hold(model, ref, curated, LM_REQUESTS)
+    cache_bytes = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
+    peak = torch.cuda.max_memory_allocated()
+    err = max(g["err"] for g in gaps)
+    steps, full = np.array(rec["step_ms"]), np.array(rec["active"]) == LM_POOL
+    tok_s = LM_POOL * full.sum() / (steps[full].sum() / 1e3)
+    prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
+    print(f"   [{card}] {LM_REQUESTS} requests, {sum(len(r.out) for r in reqs)} tokens in "
+          f"{rec['run_s']:.1f} s: {engine.steps} pooled steps, {engine.prefill_calls} prefill "
+          f"calls; a pooled decode step median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; {tok_s:.1f} tokens/s at {LM_POOL} slots "
+          f"({int(full.sum())} full steps); prefill {prefill_ms:.2f} ms a prompt token")
+    print(f"   [{card}] weights {weight_bytes:,} B, cache {cache_bytes:,} B "
+          f"(pool {LM_POOL}, s_max {LM_S_MAX}), max_memory_allocated {peak:,} B "
+          f"(the fp32 reference's {2 * weight_bytes:,} B included)")
+    step_device_ms, kernels = decode_device_time(model, engine)
+    step_bound_ms = (weight_bytes + 2 * cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"   [{card}] one pooled decode step on the card (torch.profiler, 3 steps): "
+          f"{step_device_ms:.3f} ms of kernels ({kernels:.0f} launches), busy "
+          f"{step_device_ms / np.median(steps):.1%} of the median step; bound "
+          f"{step_bound_ms:.3f} ms (bytes: the weights and the cache read once, the new "
+          f"cache written once)")
+    control = serve_and_hold(model, ref, curated, LM_CONTROL_REQUESTS,
+                             round_cache=lambda leaf: leaf.to(LM_FP8).to(leaf.dtype))[3]
+    control_err = max(g["err"] for g in control)
+    print(f"   [{card}] logits vs the fp32 forward: max|diff| {err:.4f} over "
+          f"{sum(len(g['tok']) for g in gaps)} positions (per request "
+          f"{min(g['err'] for g in gaps):.4f}–{err:.4f}); the fp8-cache control "
+          f"{control_err:.4f} over its {LM_CONTROL_REQUESTS} requests; tolerance {LM_TOL}")
+    flips = sum(int(((g["tok"] != g["ref_tok"]) & (g["margin"] > 2 * LM_TOL)).sum())
+                for g in gaps)
+    held = sum(int((g["margin"] > 2 * LM_TOL).sum()) for g in gaps)
+    print(f"   greedy tokens equal to the fp32 argmax at {held - flips} of the {held} positions "
+          f"whose fp32 top-2 margin exceeds 2 x tolerance")
+    require(err <= LM_TOL, f"path 8: logits {err} from the fp32 forward, tolerance {LM_TOL}")
+    require(control_err > LM_TOL, f"path 8: the fp8-cache control ({control_err}) "
+            f"passes the tolerance {LM_TOL}: it cannot tell the cache's precision")
+    require(flips == 0, f"path 8: {flips} greedy tokens differ where the margin is wide")
+    return dict(model=model, ref=ref, err=err, control_err=control_err,
+                step_ms_p50=float(np.median(steps)), step_ms_p99=float(np.percentile(steps, 99)),
+                step_device_ms=step_device_ms, step_bound_ms=step_bound_ms,
+                tokens_per_s=float(tok_s), prefill_ms_per_token=float(prefill_ms),
+                weight_bytes=weight_bytes, cache_bytes=cache_bytes, peak_bytes=peak)
+
+
+def decode_device_time(model, engine, reps=3):
+    """Kernel time (ms) and kernel launches of one pooled ``decode_step``
+    on the engine's cache, from ``torch.profiler`` over ``reps`` steps."""
+    batch = {"tokens": torch.zeros((engine.b, 1), dtype=torch.int64, device=model.device),
+             "pos": torch.as_tensor(engine.pos, device=model.device)}
+    model.decode_step(engine.cache, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            model.decode_step(engine.cache, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(kernels, "path 8: the profiler saw no kernel")
+    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps)
+
+
+def phase_long_prefill(model, ref, curated, card):
+    """Path 8 (c): ``prefill`` of 4,096 tokens at B = 1 through the chunked
+    attention (q_chunk 1024, k_chunk 2048, the causal skip) against the
+    dense attention and the fp32 forward; then its cache placed in an
+    ``init_cache(1, 4112)`` and 16 greedy tokens decoded through it, each
+    step's logits held against the fp32 forward of its prefix."""
+    cfg = model.cfg
+    dev = model.device
+    toks = torch.as_tensor(curated.reshape(-1)[:LM_LONG][None], dtype=torch.int64, device=dev)
+    require(cfg.attn_impl == "auto" and LM_LONG % cfg.q_chunk == 0 and LM_LONG > 2048,
+            "path 8 (c) does not reach the chunked attention")
+    dense = build_model(override(cfg, attn_impl="dense"))  # the same seed: the same weights
+    require(all(torch.equal(a, b) for a, b in zip(model.parameters(), dense.parameters())),
+            "path 8: a model built with the same seed has other weights")
+    logits, cache = model.prefill({"tokens": toks})  # also the warm-up of the timing
+    dense_logits, dense_cache = dense.prefill({"tokens": toks})
+    chunked_ms = _wall_ms(lambda: model.prefill({"tokens": toks}))
+    dense_ms = _wall_ms(lambda: dense.prefill({"tokens": toks}))
+    del dense
+    placed = model.init_cache(1, LM_LONG + LM_LONG_DECODE)
+    for key in placed:
+        placed[key][:, :, :LM_LONG] = cache[key]
+    rows, out = [logits[0, -1].float()], [int(logits[0, -1].argmax())]
+    for j in range(LM_LONG_DECODE):
+        step_logits, placed = model.decode_step(placed, {
+            "tokens": torch.tensor([[out[-1]]], device=dev),
+            "pos": torch.tensor(LM_LONG + j, device=dev)})
+        rows.append(step_logits[0, -1].float())
+        out.append(int(step_logits[0, -1].argmax()))
+    full = torch.cat([toks[0], torch.tensor(out[:-1], device=dev)])
+    want = ref(full[None])[0][LM_LONG - 1:]  # positions 4095 .. 4111
+    err_prefill = float((rows[0] - want[0]).abs().max())
+    err_decode = float((torch.stack(rows[1:]) - want[1:]).abs().max())
+    err_dense = float((dense_logits[0, -1].float() - want[0]).abs().max())
+    chunk_vs_dense = float((logits.float() - dense_logits.float()).abs().max())
+    cache_gap = max(float((cache[k].float() - dense_cache[k].float()).abs().max())
+                    for k in cache)
+    # operations the causal prefill needs: the layers' bf16 products, and the
+    # fp32 scores and probs·v over the lower triangle (the reference's fp32)
+    bf16_ops = 2 * LM_LONG * cfg.n_layers * (cfg._attn_params() + 3 * cfg.d_model * cfg.d_ff)
+    fp32_ops = 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd * LM_LONG * (LM_LONG + 1) / 2
+    bound_ms = (bf16_ops / BF16_FLOPS + fp32_ops / F32_FLOPS) * 1e3
+    print(f"   [{card}] prefill of {LM_LONG} tokens: chunked {chunked_ms:.1f} ms, dense "
+          f"{dense_ms:.1f} ms (median of 3 after a warm-up); bound {bound_ms:.1f} ms "
+          f"(operations: {bf16_ops:.3g} bf16, {fp32_ops:.3g} fp32)")
+    print(f"   [{card}] last-token logits vs the fp32 forward: chunked {err_prefill:.4f}, dense "
+          f"{err_dense:.4f}; chunked vs dense {chunk_vs_dense:.4f} (caches {cache_gap:.4f}); "
+          f"{LM_LONG_DECODE} decode steps through the placed cache vs the fp32 forward of "
+          f"each prefix {err_decode:.4f}; tolerance {LM_TOL}")
+    require(max(err_prefill, err_dense, chunk_vs_dense, err_decode) <= LM_TOL,
+            "path 8 (c): the long prefill or the decode after it is beyond the tolerance")
+    return dict(chunked_ms=chunked_ms, dense_ms=dense_ms, prefill_bound_ms=bound_ms,
+                err_prefill=err_prefill,
+                err_decode=err_decode, err_dense=err_dense)
+
+
+def phase_lm(docs, card):
+    """Path 8: curation on the card, then serving at qwen3-0.6b's full
+    width.  Every wrapper's count is set to 0 before (a) and read after (c)."""
+    reset_launches()
+    out = phase_curation(docs, card)
+    with torch.no_grad():
+        out.update(phase_lm_serve(out["curated"], card))
+        out.update(phase_long_prefill(out.pop("model"), out.pop("ref"), out["curated"], card))
+    out["launches"] = read_launches()
+    print(f"   path 8 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"]["ell"] == out["sweeps"] and out["sweeps"] > 0,
+            f"path 8: {out['launches']['ell']} sweep launches != {out['sweeps']} sweeps")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -2559,12 +2910,14 @@ def main(argv=None) -> int:
     shutil.rmtree(REPO / "build" / "path4", ignore_errors=True)
     with Phase("path 7b: a fresh 8-shard halo engine, ingest_order='locality'"):
         out7b = phase_mesh_halo(args.vertices, args.batch)
+    with Phase(f"path 8: PseudoLabelPipeline, then ServeEngine on {LM_ARCH} at full width"):
+        out8 = phase_lm(args.vertices, card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
-                 path7b=out7b["launches"])
+                 path7b=out7b["launches"], path8=out8["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

@@ -68,16 +68,6 @@ def _host_leaf(leaf) -> tuple[np.ndarray, list[int], str]:
     return raw, list(arr.shape), str(arr.dtype)
 
 
-def _resolve_dtype(name: str) -> np.dtype:
-    """np.dtype for native names, ml_dtypes for bfloat16/fp8 etc."""
-    try:
-        return np.dtype(name)
-    except TypeError:
-        import ml_dtypes
-
-        return np.dtype(getattr(ml_dtypes, name))
-
-
 def _write(directory: str, step: int, leaves) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -131,15 +121,19 @@ def _manifest(directory: str, step: int) -> tuple[str, dict]:
 def load_flat(directory: str, step: int) -> dict[str, np.ndarray]:
     """Load a checkpoint saved from a FLAT ``{name: array}`` dict as numpy
     arrays, shapes and dtypes from the manifest alone (the engine
-    persistence path: the caller need not know the geometry).  Raises
-    ``FileNotFoundError`` if the step or its marker is missing."""
+    persistence path: the caller need not know the geometry); a leaf of a
+    dtype numpy has no name for (bfloat16) comes back as a CPU tensor.
+    Raises ``FileNotFoundError`` if the step or its marker is missing."""
     src, manifest = _manifest(directory, step)
-    out: dict[str, np.ndarray] = {}
+    out: dict[str, np.ndarray | torch.Tensor] = {}
     for i, meta in enumerate(manifest["leaves"]):
         m = re.fullmatch(r"\['([^']+)'\]", meta["path"])
         name = m.group(1) if m else meta["path"]
         raw = np.load(os.path.join(src, f"arr_{i}.npy"))
-        out[name] = raw.view(_resolve_dtype(meta["dtype"])).reshape(meta["shape"])
+        saved = _TORCH_BY_NAME.get(meta["dtype"])
+        leaf = (torch.from_numpy(raw).view(saved) if saved is not None
+                else raw.view(np.dtype(meta["dtype"])))
+        out[name] = leaf.reshape(meta["shape"])
     return out
 
 
@@ -161,7 +155,7 @@ def restore(directory: str, step: int, like_tree, device=None):
         raw = torch.from_numpy(np.load(os.path.join(src, f"arr_{i}.npy")))
         saved = _TORCH_BY_NAME.get(meta["dtype"])
         t = (raw.view(saved) if saved is not None else
-             torch.from_numpy(raw.numpy().view(_resolve_dtype(meta["dtype"]))))
+             torch.from_numpy(raw.numpy().view(np.dtype(meta["dtype"]))))
         t = t.reshape(meta["shape"])
         like_t = like if isinstance(like, torch.Tensor) else torch.from_numpy(np.asarray(like))
         dev = device if device is not None else like_t.device

@@ -201,3 +201,23 @@ def seeded_graph(
 def accuracy(pred: np.ndarray, truth: np.ndarray) -> float:
     """Fraction of matching binary labels (paper's accuracy metric)."""
     return float((pred == truth).mean()) if len(pred) else 1.0
+
+
+def make_documents(rng: np.random.Generator, n: int, seq: int, vocab: int,
+                   frac_labeled: float = 0.02):
+    """Token documents of two latent domains, for ``data.pipeline``: A =
+    ascending mod-vocab walks (learnable), B = i.i.d. noise (pollution the
+    curation step should filter out); ``frac_labeled`` of them carry their
+    domain as a label.  Returns (tokens (n, seq) int32, labels, domains).
+    A copy of ``examples/semi_supervised_lm.py::make_documents``: the same
+    generator state gives the same documents."""
+    cls = rng.integers(0, 2, size=n).astype(np.int8)
+    toks = np.zeros((n, seq), np.int32)
+    a = cls == 1
+    base = rng.integers(0, vocab, size=(n, 1))
+    toks[a] = (base[a] + np.arange(seq)[None, :]) % vocab
+    toks[~a] = rng.integers(0, vocab, size=((~a).sum(), seq))
+    labels = np.full(n, UNLABELED, np.int8)
+    lab = rng.random(n) < frac_labeled
+    labels[lab] = cls[lab]
+    return toks, labels, cls

@@ -1,2 +1,2 @@
-"""Serving: the label service, its background driver and the estimator
-(counterpart of ``repro.serving``; the LM decode loop is not ported yet)."""
+"""Serving: the label service, its background driver, the estimator and
+the LM continuous batcher (counterpart of ``repro.serving``)."""

@@ -1,20 +1,30 @@
-"""The LP service's async machinery: read tickets, the fusing batcher and
-the background driver.
+"""Serving engines: the LP service's async machinery and the LM
+continuous batcher.
 
-Counterpart of the LP half of ``repro.serving.engine`` (its LM decode loop,
-``Request`` / ``ServeEngine``, is not ported yet).  A background thread
-clocks an ``LPService`` (admission-window deadlines fire with zero caller
-traffic, finished solves commit off every caller's critical path) and
-fuses the read tickets of concurrent callers into ONE gather against the
-engine's committed ``DeviceLabelView``.
+Counterpart of ``repro.serving.engine``.  Two independent serving shapes
+live here:
+
+  * ``ServiceDriver`` / ``ReadBatcher`` / ``ReadTicket`` — the async
+    machinery behind ``serving.lp_service.LPService``.  A background thread
+    clocks the service (admission-window deadlines fire with zero caller
+    traffic, finished solves commit off every caller's critical path) and
+    fuses the read tickets of concurrent callers into ONE gather against
+    the engine's committed ``DeviceLabelView``.
+  * ``ServeEngine`` — slot-based continuous batching over an LM
+    ``decode_step``: a fixed pool of B slots, prefill into a free slot,
+    then the whole pool decodes one token per step.  The batch axis of
+    every cache leaf is probed once at init by differencing
+    ``cache_shape(b)`` vs ``cache_shape(b+1)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 
 import numpy as np
+import torch
 
 
 class ReadTicket:
@@ -184,3 +194,119 @@ class ServiceDriver(threading.Thread):
         self.join(timeout)
         for t in self._batcher.close():
             t._fulfil(error=RuntimeError("service driver stopped"))
+
+
+# ---------------------------------------------------------------------- #
+# LM serving: slot-based continuous batching
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class Request:
+    """One decode request: prompt tokens in, generated tokens out."""
+
+    uid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Slot-based continuous-batching decode loop over ``model`` (a
+    ``TransformerLM``, which holds its weights; its cache lives on the
+    model's device).
+
+    A request is prefilled token by token through the POOL's
+    ``decode_step`` at its slot's own position, adopting only that slot's
+    rows of the returned cache; then ``step`` decodes one token for every
+    active slot, each at its own ``pos``, and adopts the whole cache.
+    Greedy: argmax, ties to the first index.  Every step ends in a host
+    sync (the argmax comes back to numpy).  Counts: ``steps`` (pooled
+    steps), ``prefill_calls`` (``decode_step`` calls for prompt tokens) and
+    ``decode_calls`` (all ``decode_step`` calls, = their sum).
+    """
+
+    def __init__(self, model, max_batch: int = 4, s_max: int = 256):
+        self.model = model
+        self.b = max_batch
+        self.s_max = s_max
+        self.cache = model.init_cache(max_batch, s_max)
+        sa = model.cache_shape(max_batch, s_max)
+        sb = model.cache_shape(max_batch + 1, s_max)
+        self.batch_axes = {
+            key: next(i for i, (x, y) in enumerate(zip(sa[key].shape, sb[key].shape))
+                      if x != y) for key in sa}
+        self.pos = np.zeros(max_batch, np.int64)
+        self.slots: list[Request | None] = [None] * max_batch
+        self._decode = model.decode_step
+        self.steps = 0
+        self.prefill_calls = 0
+        self.decode_calls = 0
+
+    # ------------------------------------------------------------------ #
+    def _free_slot(self) -> int | None:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def _call(self, tokens: np.ndarray, pos: np.ndarray):
+        dev = self.model.device
+        self.decode_calls += 1
+        return self._decode(self.cache, {
+            "tokens": torch.as_tensor(tokens, dtype=torch.int64).to(dev),
+            "pos": torch.as_tensor(pos, dtype=torch.int64).to(dev)})
+
+    def _commit_slot(self, new_cache, slot: int):
+        """Adopt only ``slot``'s rows from new_cache (other slots frozen)."""
+        for key, new in new_cache.items():
+            axis = self.batch_axes[key]
+            self.cache[key].narrow(axis, slot, 1).copy_(new.narrow(axis, slot, 1))
+
+    def submit(self, req: Request) -> bool:
+        """Prefill ``req`` into a free slot; False when all slots busy."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        self.pos[slot] = 0
+        self.slots[slot] = req
+        logits = None
+        for tok in req.prompt:  # slot-local prefill at the slot's own pos
+            logits, cache = self._call(np.full((self.b, 1), int(tok)), self.pos.copy())
+            self.prefill_calls += 1
+            self._commit_slot(cache, slot)
+            self.pos[slot] += 1
+        req.out.append(int(torch.argmax(logits[slot, -1])))
+        return True
+
+    # ------------------------------------------------------------------ #
+    def step(self):
+        """One batched decode step for every active slot."""
+        if not any(s is not None for s in self.slots):
+            return
+        toks = np.zeros((self.b, 1), np.int64)
+        for i, req in enumerate(self.slots):
+            if req is not None and req.out:
+                toks[i, 0] = req.out[-1]
+        # per-slot positions: continuous batching, every slot at its own pos
+        logits, self.cache = self._call(toks, self.pos)
+        self.steps += 1
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.pos[i] += 1
+            req.out.append(int(nxt[i]))
+            if len(req.out) >= req.max_new:
+                req.done = True
+                self.slots[i] = None
+
+    def run(self, requests: list[Request], max_steps: int = 1_000):
+        """Drive all ``requests`` to completion (admit-as-slots-free)."""
+        pending = list(requests)
+        while (pending or any(s is not None for s in self.slots)) \
+                and self.steps < max_steps:
+            while pending and self._free_slot() is not None:
+                self.submit(pending.pop(0))
+            self.step()
+        return [r for r in requests if r.done]

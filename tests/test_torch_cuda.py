@@ -738,3 +738,54 @@ def test_stlp_step_on_the_card_matches_the_cpu(card, gamma):
         assert sg.num_unlabeled == sc.num_unlabeled
         ids = np.flatnonzero(graphs[1].alive & (graphs[1].labels == -1))
         assert np.abs(graphs[0].f[ids] - graphs[1].f[ids]).max() <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# the LM serving slice: the model and the pipeline on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", ["qwen3_0_6b", "h2o_danube_3_4b"])
+def test_lm_decode_on_the_card_matches_the_cpu(card, name):
+    """Prefill and 20 decode steps (vector ``pos``, row 0 past the 16-row
+    cache's end or round h2o's ring) on the card against the CPU on the same
+    weights: logits within 0.1, caches within 0.0625 (the bf16 bound of
+    ``tests/test_torch_lm.py``: the two devices round bf16 products and
+    their sums in different orders).  A write past the cache's end must be
+    dropped on the card too, not trip a device-side assert."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_smoke_config(name)
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 20)))
+    got, want = gpu.prefill({"tokens": toks.to(card)}), cpu.prefill({"tokens": toks})
+    assert (got[0].float().cpu() - want[0].float()).abs().max() <= 0.1
+    caches = [gpu.init_cache(2, 16), cpu.init_cache(2, 16)]
+    for t in range(20):
+        pos = torch.tensor([t, t // 2])
+        g, caches[0] = gpu.decode_step(caches[0], {"tokens": toks[:, t:t + 1].to(card),
+                                                   "pos": pos.to(card)})
+        c, caches[1] = cpu.decode_step(caches[1], {"tokens": toks[:, t:t + 1], "pos": pos})
+        assert (g.float().cpu() - c.float()).abs().max() <= 0.1, t
+    torch.cuda.synchronize()
+    for key in ("k", "v"):
+        assert (caches[0][key].float().cpu() - caches[1][key].float()).abs().max() <= 0.0625
+
+
+def test_pipeline_first_wave_on_the_card_matches_the_cpu(card):
+    """The pipeline's first wave on the card (``DynLP`` through the sweep
+    kernel) and on the CPU: the graph byte for byte, F within 20·δ,
+    launches = iterations."""
+    from repro_torch.data.pipeline import PseudoLabelPipeline
+    from repro_torch.data.synth import make_documents
+
+    toks, labels, _ = make_documents(np.random.default_rng(0), 2000, 64, 151_936)
+    gpu, cpu = PseudoLabelPipeline(k=5), PseudoLabelPipeline(k=5, device="cpu")
+    before = ell_propagate_step.launches
+    st = gpu.ingest(toks, labels)
+    cpu.ingest(toks, labels)
+    assert ell_propagate_step.launches - before == st.lp_iterations > 0
+    for name in ("src", "dst", "wgt", "knn_idx", "knn_wgt"):
+        assert np.array_equal(getattr(gpu.graph, name), getattr(cpu.graph, name)), name
+    assert np.abs(gpu.graph.f - cpu.graph.f).max() <= 20 * DELTA

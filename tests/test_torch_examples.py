@@ -2,12 +2,14 @@
 their inline assertions: ``examples/torch_quickstart.py`` (accuracy
 against the ground truth ≥ 0.99, as the reference's quickstart reaches,
 and agreement with the harmonic optimum > 0.97), ``torch_dynamic_stream.py``
-(its four parts, the 8-shard mesh on the CPU included) and
-``torch_serve_lp.py``."""
+(its four parts, the 8-shard mesh on the CPU included),
+``torch_serve_lp.py`` and ``torch_serve_lm.py`` (qwen3-0.6b's smoke config,
+and h2o-danube-3-4b's, whose cache is a ring buffer)."""
 
 import importlib.util
 import pathlib
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -49,8 +51,16 @@ def test_serve_lp():
     assert ex.async_driver_demo("cpu").deadline_admissions >= 1
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b"])
+def test_serve_lm(arch):
+    engine, done = _load("torch_serve_lm").main("cpu", arch=arch)
+    assert len(done) == 6 and engine.steps > 0
+    assert engine.decode_calls == engine.prefill_calls + engine.steps
+
+
 def test_examples_import_neither_jax_nor_the_reference():
-    for name in ("torch_quickstart", "torch_dynamic_stream", "torch_serve_lp"):
+    for name in ("torch_quickstart", "torch_dynamic_stream", "torch_serve_lp",
+                 "torch_serve_lm"):
         src = (EXAMPLES / f"{name}.py").read_text()
         assert "import jax" not in src and "from repro." not in src and \
             "import repro\n" not in src, name
