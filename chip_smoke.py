@@ -187,6 +187,32 @@ Phases (each prints its lines and its seconds; any failed check raises):
    each step held against the fp32 forward of its prefix; both prefill
    times beside their bound.  Path 8 runs none of the five kernels but the
    sweep.
+14. Path 9, the LM training slice: what ``examples/torch_semi_supervised_lm.py
+   --full-config`` runs, instrumented.  (a) The pipeline curates 3 waves of
+   400 64-token documents over qwen3-0.6b's vocabulary on the card: sweep
+   launches equal the waves' sweeps and the other kernels launch 0 times;
+   accuracy and purity exceed 0.9.  (b) ``build_model(get_config(
+   "qwen3-0.6b"))`` at its full published config (751,632,384 parameters,
+   bf16 from a seeded generator, ``remat="full"``) trains 200 steps of
+   8 × 64 curated tokens through ``make_train_step`` (lr 3e-3, warmup 10):
+   the last loss below the first.  It prints the step's median and p99 ms
+   split at a sync into forward+backward and optimizer, tokens a second,
+   one step's kernel time and launches from ``torch.profiler`` and the
+   card's busy share, the step's bound and ``max_memory_allocated``.
+   (c) The first step's bf16 gradients against an fp32 autograd of the same
+   weights (TF32 off), per leaf within ``GRAD_TOL``; then directional
+   finite differences of the loss with the weights upcast to fp64, one
+   seeded direction in each of ``FD_LEAVES`` (embed on the batch's rows,
+   lm_head, final_norm and every leaf of layer 14), Richardson-extrapolated
+   from steps ε and ε/2 chosen above the loss's measured rounding noise,
+   against ``<g_fp32, u>`` within 1% (or 3× the noise's share where the
+   step cannot grow).  (d) ``optim.update`` of those gradients on the card
+   against the CPU: master, m and v bit for bit, the masters moved and the
+   bf16 params rounded from them.  (e) ``save_async`` of ``{"params",
+   "opt"}`` (10.5 GB under ``build/path9_ckpt``, removed after) while two
+   more steps run, ``restore`` into a fresh model: every leaf bitwise, and
+   those two steps after the restore within the gap of the same steps run
+   twice of the uninterrupted ones.  Path 9 runs no kernel but the sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -198,6 +224,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import json
 import pathlib
 import re
@@ -230,7 +257,8 @@ from repro_torch.core.snapshot import build_problem  # noqa: E402
 from repro_torch.core.stlp import STLP, harmonic_solve  # noqa: E402
 from repro_torch.core.stream import StreamEngine  # noqa: E402
 from repro_torch.core.init_labels import supernode_init  # noqa: E402
-from repro_torch.configs.registry import get_config, override  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs.registry import get_config, get_smoke_config, override  # noqa: E402
 from repro_torch.data.pipeline import PseudoLabelPipeline  # noqa: E402
 from repro_torch.data.synth import (StreamSpec, accuracy, gaussian_mixture_stream,  # noqa: E402
                                     make_documents)
@@ -254,11 +282,15 @@ from repro_torch.kernels import landmark_propagate as landmark_module  # noqa: E
 from repro_torch.kernels.landmark_propagate import ASSIGN_CHUNK, LandmarkConfig  # noqa: E402
 from repro_torch.kernels.ops import (propagate_full_ell, run_propagation,  # noqa: E402
                                      select_backend)
+from repro_torch.launch.train import checkpoint_tree, restore_into  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.convert import lm_params_to_tree, to_tree  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
 from repro_torch.serving.lp_service import LPService  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
+from repro_torch.training import optim as optim_module  # noqa: E402
+from repro_torch.training.trainer import make_train_step  # noqa: E402
 from tools.gpu_timing import QueueError, enqueue, gpu_times  # noqa: E402
 
 DELTA = 1e-4
@@ -2856,6 +2888,436 @@ def phase_lm(docs, card):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the LM training slice (path 9)
+# --------------------------------------------------------------------- #
+TRAIN_STEPS = 200  # examples/torch_semi_supervised_lm.py's default
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+# The bf16 step's gradients against an fp32 autograd of the same weights, per
+# leaf ||g_bf16 - g_fp32|| / ||g_fp32||, on the card with TF32 off: 0.0423
+# measured on an H100 (k_norm; bf16 activations rounded through 28 layers),
+# so 0.08 leaves 1.9x of it.
+GRAD_TOL = 0.08
+FD_TOL = 0.01  # directional finite differences against <g_fp32, u>
+FD_LAYER = 14  # the middle layer's leaves get a direction each
+FD_LEAVES = ("embed", "lm_head", "final_norm") + tuple(
+    f"layers.{FD_LAYER}.{leaf}" for leaf in (
+        "ln1", "ln2", "attn.wq", "attn.wk", "attn.wv", "attn.wo", "attn.q_norm",
+        "attn.k_norm", "mlp.w1", "mlp.w3", "mlp.w2"))
+FD_NOISE_SHARE = 0.003  # ε is chosen so rounding noise moves the estimate by 0.3%
+FD_NOISE_GAIN = np.sqrt((8 / 3) ** 2 + (1 / 3) ** 2)  # Richardson's gain on a difference's noise
+FD_MAX_STEP = 0.1  # ... unless that needs ε·u longer than 10% of the leaf's norm
+FD_PROBE = 0.01  # the noise is measured over steps up to 1% of the leaf's norm
+CKPT_MIN_FREE = 24e9  # bytes free under build/ for the full-width checkpoint
+
+
+def load_example(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def instrument_training(ex, rec):
+    """Wrap the example's ``make_train_step`` and ``optim.update`` (module
+    attributes, as path 1 wraps ``run_propagation``): each step's ms on the
+    host clock split at a sync before the optimizer, and the first step's
+    batch, gradients and the masters it started from."""
+    make, update = ex.make_train_step, optim_module.update
+
+    def timed_update(cfg, state, grads, dtypes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["fb_ms"].append((t0 - rec["t0"]) * 1e3)
+        if "grads0" not in rec:
+            rec["grads0"] = {n: g.detach().clone() for n, g in grads.items()}
+            rec["masters0"] = state["master"]  # update is functional: never written
+        out = update(cfg, state, grads, dtypes)
+        torch.cuda.synchronize()
+        rec["opt_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_make(model, cfg, **kw):
+        step = make(model, cfg, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            rec["t0"] = time.perf_counter()
+            rec.setdefault("batch0", batch)
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - rec["t0"]) * 1e3)
+            return out
+        return timed
+
+    ex.make_train_step, optim_module.update = timed_make, timed_update
+    return lambda: (setattr(ex, "make_train_step", make),
+                    setattr(optim_module, "update", update))
+
+
+def train_bound_ms(cfg, n_params):
+    """The least time (ms) an H100 takes for one train step of
+    ``TRAIN_BATCH × TRAIN_SEQ`` tokens: the bf16 products of forward and
+    backward (6 × the parameters outside the embedding gather × tokens) at
+    the dense bf16 rate, the fp32 attention scores and probs·v over the
+    causal triangle (forward and backward, 3 × 4·B·H·hd·S(S+1)/2 a layer) at
+    the fp32 rate, and the optimizer's bytes (read master, m, v and the bf16
+    grad, write master, m, v and the bf16 param: 28 B a parameter) at the
+    HBM rate.  Returns (total, products, attention, optimizer)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bf16_ops = 6 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    att_ops = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 \
+        * cfg.n_layers
+    opt_bytes = 28 * n_params
+    parts = (bf16_ops / BF16_FLOPS * 1e3, att_ops / F32_FLOPS * 1e3,
+             opt_bytes / HBM_BYTES_PER_S * 1e3)
+    return (sum(parts),) + parts
+
+
+def step_device_time(model, state, batch, opt_cfg, reps=2):
+    """Kernel time (ms) and kernel launches of one train step, from
+    ``torch.profiler`` over ``reps`` steps after a warm-up; returns the
+    state after them."""
+    step = make_train_step(model, opt_cfg)
+    state, _, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            state, _, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(kernels, "path 9: the profiler saw no kernel")
+    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps, state)
+
+
+def model_from(cfg, weights, dtype):
+    """qwen3-0.6b with ``weights`` (fp32 tensors by name) cast to ``dtype``."""
+    model = build_model(cfg).to(dtype)
+    model.load_state_dict(weights)
+    return model
+
+
+def grads_of(model, batch):
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, _ = model.loss(batch)
+    return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def phase_train_grads(cfg, rec, card):
+    """Path 9 (c): the first step's bf16 gradients against an fp32 autograd
+    of the same weights upcast (TF32 off), per leaf; then directional finite
+    differences of the loss, its weights upcast to fp64, against
+    ``<g_fp32, u>`` for one seeded direction in each of ``FD_LEAVES``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    batch = rec["batch0"]
+    ref32 = model_from(cfg, rec["masters0"], torch.float32)
+    loss32, g32 = grads_of(ref32, batch)
+    del ref32
+    rel = {n: float((rec["grads0"][n].float() - g).norm() / g.norm()) for n, g in g32.items()}
+    worst = max(rel, key=rel.get)
+    by_kind = {}
+    for n, r in rel.items():
+        kind = optim_module.ref_path(n)
+        by_kind[kind] = max(by_kind.get(kind, 0.0), r)
+    print(f"   [{card}] bf16 step gradients vs fp32 autograd (TF32 off), per leaf "
+          f"||dg||/||g||: max {rel[worst]:.4f} ({worst}); by kind "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kind.items()))
+          + f"; tolerance {GRAD_TOL}; fp32 loss {float(loss32):.6f}")
+    require(rel[worst] <= GRAD_TOL, f"path 9: {worst}'s bf16 gradient {rel[worst]} from fp32")
+
+    ref64 = model_from(cfg, rec["masters0"], torch.float64)
+    params = dict(ref64.named_parameters())
+
+    def loss_at():
+        with torch.no_grad():
+            return float(ref64.loss(batch)[0])
+
+    l0 = loss_at()
+    gen = torch.Generator(device=ref64.device).manual_seed(9)
+    rows = torch.unique(batch["tokens"].long())  # the embedding rows the batch reads
+    fd = {}
+    for name in FD_LEAVES:
+        p = params[name]
+        u = torch.zeros_like(p)
+        if name == "embed":  # the other rows have no gradient and no difference
+            u[rows] = torch.randn((len(rows), p.shape[1]), generator=gen, device=p.device,
+                                  dtype=p.dtype)
+        else:
+            u = torch.randn(p.shape, generator=gen, device=p.device, dtype=p.dtype)
+        u /= u.norm()
+        dot = float((g32[name].double() * u).sum())
+        keep = p.detach().clone()
+        scale = float(keep[u != 0].norm())  # the norm of the part u moves
+
+        def at(t):
+            with torch.no_grad():
+                p.copy_(keep + t * u)
+            return loss_at()
+
+        # L's rounding noise (its fp32 resolution among it): the rms residual
+        # of a quadratic fit over 9 points within 1% of the leaf's norm
+        ts = np.linspace(-FD_PROBE, FD_PROBE, 9) * scale
+        ls = np.array([l0 if t == 0 else at(t) for t in ts])
+        fit = np.polyfit(ts, ls, 2)
+        noise = max(float(np.sqrt(np.sum((np.polyval(fit, ts) - ls) ** 2) / (len(ts) - 3))),
+                    1e-300)
+        # central differences at eps and eps/2, extrapolated (Richardson) so
+        # the eps^2 term goes: the estimate's noise is 2.75x that of one
+        # difference at eps, sqrt(2)*noise/(2*eps*|dot|) of |dot|
+        eps = min(FD_NOISE_GAIN * np.sqrt(2) * noise / (2 * FD_NOISE_SHARE * max(abs(dot), 1e-300)),
+                  FD_MAX_STEP * scale)
+        d1 = (at(eps) - at(-eps)) / (2 * eps)
+        d2 = (at(eps / 2) - at(-eps / 2)) / eps
+        diff = (4 * d2 - d1) / 3
+        with torch.no_grad():
+            p.copy_(keep)
+        share = FD_NOISE_GAIN * np.sqrt(2) * noise / (2 * eps * abs(dot))
+        tol = max(FD_TOL, 3 * share)
+        err = abs(diff - dot) / abs(dot)
+        fd[name] = dict(dot=dot, fd=diff, fd_eps=d1, fd_half=d2, err=err, noise=noise, eps=eps,
+                        share=share, tol=tol)
+        print(f"   [{card}] {name:24s} <g,u> {dot: .6e}  FD {diff: .6e} (eps {d1: .6e}, eps/2 "
+              f"{d2: .6e})  rel err {err:.2e}; noise of L {noise:.1e}, eps {eps:.3e} = "
+              f"{eps / scale:.1e} of the leaf's norm where u moves it, noise share "
+              f"{share:.1e}, tolerance {tol:.3f}")
+    del ref64, params
+    bad = [n for n, r in fd.items() if r["err"] > r["tol"]]
+    require(not bad, f"path 9: finite differences off the fp32 gradient in {bad}")
+    return dict(grad_rel_max=rel[worst], grad_rel_leaf=worst, grad_rel_by_kind=by_kind,
+                fd=fd, fd_loss=l0)
+
+
+def ulps(a, b):
+    """Largest |a − b| in fp32 ULPs of b."""
+    d = (a.double() - b.double()).abs()
+    return float((d / (torch.finfo(torch.float32).eps * b.double().abs().clamp(min=1e-38))).max())
+
+
+def phase_train_update(rec, opt_cfg, card):
+    """Path 9 (d): ``optim.update`` of the first step's gradients on the card
+    against the same update on the CPU, from the state that step started
+    from: master, m and v bit for bit (the update's sqrt, pow and cos round
+    from fp64 and its norm sums in fp64, since torch's card and CPU fp32
+    versions round differently); the masters move and the bf16 params
+    round from them."""
+    masters = rec["masters0"]
+    dtypes = {n: torch.bfloat16 for n in masters}
+
+    def state_on(dev):
+        return {"master": {n: m.to(dev) for n, m in masters.items()},
+                "m": {n: torch.zeros_like(m, device=dev) for n, m in masters.items()},
+                "v": {n: torch.zeros_like(m, device=dev) for n, m in masters.items()},
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    t0 = time.perf_counter()
+    card_dev = next(iter(rec["grads0"].values())).device
+    pg, sg = optim_module.update(opt_cfg, state_on(card_dev), rec["grads0"], dtypes)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    grads_cpu = {n: g.cpu() for n, g in rec["grads0"].items()}
+    t0 = time.perf_counter()
+    pc, sc = optim_module.update(opt_cfg, state_on("cpu"), grads_cpu, dtypes)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    differ, worst = 0, 0.0
+    for key in ("master", "m", "v"):
+        for n in masters:
+            got, want = sg[key][n].cpu(), sc[key][n]
+            if not torch.equal(got, want):
+                differ += int((got != want).sum())
+                worst = max(worst, ulps(got, want))
+    moved = sum(int((sg["master"][n] != masters[n]).sum()) for n in masters)
+    total = sum(m.numel() for m in masters.values())
+    rounded = all(torch.equal(pg[n], sg["master"][n].to(torch.bfloat16)) and
+                  torch.equal(pg[n].cpu(), pc[n]) for n in masters)
+    changed = sum(int((pg[n] != masters[n].to(torch.bfloat16)).sum()) for n in masters)
+    print(f"   [{card}] optim.update of step 0's gradients: card {card_ms:.1f} ms (one call, "
+          f"first use), CPU {cpu_ms:.0f} ms; master/m/v card vs CPU: {differ} elements "
+          f"differ (max {worst:.1f} fp32 ULP) of {3 * total:,}; masters moved {moved:,} of "
+          f"{total:,}; bf16 params = masters rounded: {rounded}; {changed:,} bf16 params "
+          f"changed")
+    require(differ == 0, f"path 9: {differ} elements of the card's update differ from the "
+            f"CPU's, by up to {worst} ULP")
+    require(moved > 0.99 * total and rounded and changed > 0,
+            "path 9: the masters did not move by the update, or the params do not round "
+            "from them")
+    return dict(update_differ=differ, update_max_ulp=worst, update_card_ms=card_ms,
+                update_cpu_ms=cpu_ms)
+
+
+def phase_train_checkpoint(model, state, curated, opt_cfg, card):
+    """Path 9 (e): ``save_async`` of ``{"params", "opt"}`` while two more
+    steps run, then ``restore`` into a fresh model (another seed): every leaf
+    bitwise, and the two steps run again on the restored model against the
+    uninterrupted ones, within the gap of those steps run twice."""
+    root = REPO / "build" / "path9_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < CKPT_MIN_FREE:
+        print(f"   [{card}] {free:,} B free under build/, {CKPT_MIN_FREE:,.0f} B wanted: (e) "
+              f"runs at the smoke config")
+        model = build_model(get_smoke_config(LM_ARCH))
+        state = optim_module.init_state(dict(model.named_parameters()))
+    step_fn = make_train_step(model, opt_cfg)
+    rng = np.random.default_rng(99)
+    batches = []
+    for _ in range(2):
+        idx = rng.integers(0, len(curated), size=TRAIN_BATCH)
+        toks = torch.as_tensor(curated[idx] % model.cfg.vocab, dtype=torch.int32,
+                               device=model.device)
+        batches.append({"tokens": toks, "labels": toks.roll(-1, dims=1)})
+    k = int(state["step"])
+    mgr = CheckpointManager(str(root))
+    tree = checkpoint_tree(model, state)  # fresh stacked copies: the saved values
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(k, tree)
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    uninterrupted = []
+    for b in batches:  # training goes on while the worker writes
+        state, loss, _ = step_fn(state, b)
+        uninterrupted.append(float(loss))
+    mgr.wait()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = dir_bytes(root)
+    fresh = build_model(model.cfg, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_into(mgr, fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(a, b) for a, b in zip(
+        flat_leaves(lm_params_to_tree(fresh)), flat_leaves(tree["params"])))
+    for key in ("master", "m", "v"):
+        same &= all(torch.equal(a, b) for a, b in zip(
+            flat_leaves(to_tree(restored[key])), flat_leaves(tree["opt"][key])))
+    same &= int(restored["step"]) == k
+    require(same, "path 9: a restored leaf differs from the saved one")
+    del tree
+    # the update is functional: ``restored`` stays as it was; the params are
+    # written in place, so keep them
+    keep = {n: p.detach().clone() for n, p in fresh.named_parameters()}
+    runs = []
+    for attempt in range(2):
+        if attempt:
+            with torch.no_grad():
+                for n, p in fresh.named_parameters():
+                    p.copy_(keep[n])
+        step_r = make_train_step(fresh, opt_cfg)
+        st, losses = restored, []
+        for b in batches:
+            st, loss, _ = step_r(st, b)
+            losses.append(float(loss))
+        runs.append(losses)
+    gaps = [abs(a - b) for a, b in zip(*runs)]
+    off = [abs(a - b) for a, b in zip(runs[0], uninterrupted)]
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"   [{card}] checkpoint at step {k}: {nbytes:,} B ({model.cfg.name}); save_async "
+          f"handed off in {handoff_ms:.0f} ms (host copies), written in {save_ms:.0f} ms "
+          f"while 2 steps ran; restore {restore_ms:.0f} ms; every leaf bitwise: {same}")
+    print(f"   [{card}] the 2 steps after the restore: losses {runs[0]} against the "
+          f"uninterrupted {uninterrupted}; |diff| {off}, the same steps run twice {gaps}")
+    require(all(o <= g for o, g in zip(off, gaps)),
+            f"path 9: resumed losses {runs[0]} vs uninterrupted {uninterrupted}, gaps {gaps}")
+    return dict(ckpt_bytes=nbytes, ckpt_handoff_ms=handoff_ms, ckpt_save_ms=save_ms,
+                ckpt_restore_ms=restore_ms, ckpt_model=model.cfg.name, resume_off=off,
+                resume_gaps=gaps)
+
+
+def flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in flat_leaves(tree[key])]
+    return [tree]
+
+
+def phase_train(card):
+    """Path 9: ``examples/torch_semi_supervised_lm.py --full-config`` on the
+    card, instrumented: (a) curation, (b) training qwen3-0.6b at full width,
+    (c) gradients against fp32 and finite differences, (d) the optimizer on
+    the card against the CPU, (e) checkpoint and resume.  Every wrapper's
+    count is set to 0 before (a) and read after (e)."""
+    ex = load_example("torch_semi_supervised_lm")
+    cfg = get_config(LM_ARCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    cur = ex.curate(rng, cfg.vocab, model.device)
+    curate_s = time.perf_counter() - t0
+    after_a = read_launches()
+    print(f"   [{card}] (a) curation {curate_s:.1f} s: {cur['sweeps']} sweeps, launches "
+          f"{after_a}; accuracy {cur['quality']:.4f}, purity {cur['purity']:.4f}, "
+          f"{len(cur['curated'])} documents")
+    require(after_a["ell"] == cur["sweeps"] > 0 and
+            all(n == 0 for key, n in after_a.items() if key != "ell"),
+            f"path 9: launches {after_a} for {cur['sweeps']} sweeps")
+    require(cur["quality"] > 0.9 and cur["purity"] > 0.9,
+            f"path 9: accuracy {cur['quality']}, purity {cur['purity']}")
+
+    rec = dict(step_ms=[], fb_ms=[], opt_ms=[])
+    undo = instrument_training(ex, rec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, losses = ex.train(model, cur["curated"], rng, TRAIN_STEPS, TRAIN_BATCH)
+    finally:
+        undo()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = np.array(rec["step_ms"][1:])  # the first step allocates and warms up
+    fb, opt = np.array(rec["fb_ms"][1:]), np.array(rec["opt_ms"][1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (np.median(steps) / 1e3)
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step_kernel_ms, step_launches, state = step_device_time(model, state, rec["batch0"],
+                                                            opt_cfg)
+    bound = train_bound_ms(cfg, n_params)
+    print(f"   [{card}] (b) {cfg.name}, {n_params:,} parameters (bf16, drawn in "
+          f"{build_s:.1f} s), remat {cfg.remat!r}: {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens in {train_s:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; forward+backward median {np.median(fb):.2f} ms "
+          f"(p99 {np.percentile(fb, 99):.2f}), optimizer median {np.median(opt):.2f} ms "
+          f"(p99 {np.percentile(opt, 99):.2f}); {tok_s:.0f} tokens/s; first step "
+          f"{rec['step_ms'][0]:.1f} ms")
+    print(f"   [{card}] one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms "
+          f"of kernels ({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}"
+          f" of the median step; bound {bound[0]:.2f} ms (bf16 products {bound[1]:.2f}, fp32 "
+          f"attention {bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated "
+          f"{peak:,} B")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"path 9: loss {losses[0]} -> {losses[-1]}")
+    out = dict(sweeps=cur["sweeps"], accuracy=cur["quality"], purity=cur["purity"],
+               curate_s=curate_s, losses=losses, train_s=train_s,
+               step_ms_p50=float(np.median(steps)), step_ms_p99=float(np.percentile(steps, 99)),
+               fb_ms_p50=float(np.median(fb)), opt_ms_p50=float(np.median(opt)),
+               tokens_per_s=float(tok_s), step_kernel_ms=step_kernel_ms,
+               step_launches=step_launches, bound_ms=bound, peak_bytes=peak)
+    for part, run in (("c", lambda: phase_train_grads(cfg, rec, card)),
+                      ("d", lambda: phase_train_update(rec, opt_cfg, card)),
+                      ("e", lambda: phase_train_checkpoint(model, state, cur["curated"],
+                                                           opt_cfg, card))):
+        t0 = time.perf_counter()
+        out.update(run())
+        out[f"{part}_s"] = time.perf_counter() - t0
+        print(f"   ({part}) {out[f'{part}_s']:.1f} s", flush=True)
+        if part == "d":
+            del rec  # the first step's batch, gradients and masters
+    out["launches"] = read_launches()
+    print(f"   path 9 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"] == after_a, f"path 9: launches {out['launches']} after (a) "
+            f"were {after_a}: training launched a kernel")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -2912,12 +3374,14 @@ def main(argv=None) -> int:
         out7b = phase_mesh_halo(args.vertices, args.batch)
     with Phase(f"path 8: PseudoLabelPipeline, then ServeEngine on {LM_ARCH} at full width"):
         out8 = phase_lm(args.vertices, card)
+    with Phase(f"path 9: the curated documents train {LM_ARCH} at full width"):
+        out9 = phase_train(card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
-                 path7b=out7b["launches"], path8=out8["launches"])
+                 path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

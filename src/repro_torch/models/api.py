@@ -14,8 +14,9 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import TransformerLM
 
 
-def build_model(cfg: ArchConfig, device: str | torch.device | None = None) -> TransformerLM:
+def build_model(cfg: ArchConfig, device: str | torch.device | None = None,
+                seed: int = 0) -> TransformerLM:
     """The model of ``cfg`` on ``device`` (``None`` → ``cuda``), its bf16
-    weights drawn from a seeded generator.  Only the dense family is
-    ported: ``TransformerLM`` raises for every other."""
-    return TransformerLM(cfg, device=device)
+    weights drawn from a generator seeded with ``seed``.  Only the dense
+    family is ported: ``TransformerLM`` raises for every other."""
+    return TransformerLM(cfg, device=device, seed=seed)

@@ -5,15 +5,19 @@ layers into one pytree with a leading L dim and drives them with
 ``lax.scan``; here they are a ``ModuleList`` run in a loop, and the KV cache
 keeps the reference's ``(L, B, S_kv, Hkv, hd)`` bf16 layout.  The
 reference's ``shard(...)`` calls are identities unless logical-axis rules
-are installed, which no test or example does, so they are left out, as are
-``jax.checkpoint`` and ``remat`` (they only matter under a gradient).  The
-``moe`` and ``vlm`` families raise until their slice (``ROADMAP.md``).
+are installed, which no test or example does, so they are left out.  Its
+``jax.checkpoint`` of each layer under ``cfg.remat == "full"`` becomes
+``torch.utils.checkpoint`` of each ``Block`` while grad is enabled: the
+backward recomputes a layer's activations from its input, which changes
+memory, never values.  The ``moe`` and ``vlm`` families raise until their
+slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import MLP, Attention, _ones, _param
@@ -56,19 +60,20 @@ class TransformerLM(nn.Module):
     """Dense llama-style LM: embedding, ``n_layers`` blocks, ``final_norm``
     and ``lm_head`` (the embedding's transpose under ``tie_embeddings``).
 
-    Weights are bf16, drawn from a ``torch.Generator`` seeded with 0 on
-    ``device`` (``None`` → ``cuda``; raises without one), so two models of
-    one config on one device are equal; the draws follow the reference's
-    order of leaves but not its values: carry the reference's own ``init``
-    across with ``models.convert.lm_params_from_jax``.
+    Weights are bf16, drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (``None`` → ``cuda``; raises without one), so two models
+    of one config and seed on one device are equal; the draws follow the
+    reference's order of leaves but not its values: carry the reference's
+    own ``init`` across with ``models.convert.lm_params_from_jax``.
     """
 
-    def __init__(self, cfg: ArchConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: ArchConfig, device: str | torch.device | None = None,
+                 seed: int = 0):
         super().__init__()
         if cfg.family != "dense" or cfg.enc_dec:
             raise not_ported(cfg)
         self.cfg = cfg
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(0)
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
@@ -91,8 +96,13 @@ class TransformerLM(nn.Module):
         """Logits ``(B, S, V)`` of a whole sequence, no cache."""
         h = self.embed[tokens]
         positions = self._positions(*tokens.shape)
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
         for layer in self.layers:
-            h, _ = layer(h, positions)
+            if remat:  # the forward draws no random numbers: no RNG state to keep
+                h, _ = checkpoint(layer, h, positions, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, _ = layer(h, positions)
         return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
 
     def loss(self, batch):

@@ -1,7 +1,6 @@
-"""Fault tolerance: preemption and stragglers.
+"""Fault tolerance and gradient compression.
 
-Counterpart of the first half of ``repro.training.resilience`` (its
-gradient compression is not ported yet):
+Counterpart of ``repro.training.resilience``:
 
 * ``PreemptionGuard`` — SIGTERM/SIGINT turn into a "checkpoint now, then
   exit cleanly" flag that a loop polls between steps (``LPService`` polls
@@ -19,6 +18,8 @@ import logging
 import signal
 import statistics
 import time
+
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -114,3 +115,72 @@ class StragglerMonitor:
         """Test/offline path: feed a duration directly."""
         self._t0 = time.perf_counter() - seconds
         return self.end_step()
+
+
+# --------------------------------------------------------------------- #
+# int8 error-feedback gradient compression
+# --------------------------------------------------------------------- #
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def init_error_state(params):
+    return _tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+
+
+def compress(g: torch.Tensor, err: torch.Tensor):
+    """Returns (int8 codes, fp32 scale, new error).  g+err is quantized to
+    symmetric int8 (``torch.round`` rounds half to even, as ``jnp.round``);
+    the quantization residual becomes the next error."""
+    g32 = g.to(torch.float32) + err
+    scale = torch.max(torch.abs(g32)) / torch.full((), 127.0, device=g32.device) + 1e-12
+    q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+    new_err = g32 - q.to(torch.float32) * scale
+    return q, scale, new_err
+
+
+def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_tree(grads, err_state):
+    """Tree version; returns (codes, scales, new_err)."""
+    out = _tree_map(compress, grads, err_state)  # a (q, scale, err) tuple a leaf
+    return tuple(_tree_map(lambda t, i=i: t[i], out) for i in range(3))
+
+
+def decompress_tree(codes, scales):
+    return _tree_map(decompress, codes, scales)
+
+
+def make_compressed_allreduce(mesh):
+    """Compressed mean-reduce over ``mesh`` (a ``DeviceMesh``):
+    ``allreduce(codes, scales)`` takes one tree of int8 codes and one of
+    fp32 scales a shard (lists in shard order, each shard's on its own
+    device) and returns one tree a shard of the fp32 mean on that shard's
+    device.  Each shard's codes and scales are copied to every other
+    device, decompressed there and summed in shard order."""
+
+    def allreduce(codes: list, scales: list) -> list:
+        n = mesh.n_devices
+        if len(codes) != n or len(scales) != n:
+            raise ValueError(f"{len(codes)} code trees and {len(scales)} scale trees "
+                             f"for {n} shards")
+
+        def mean_on(dev):
+            def leaf(*qs_and_ss):
+                qs, ss = qs_and_ss[:n], qs_and_ss[n:]
+                total = None
+                for q, s in zip(qs, ss):
+                    part = decompress(q.to(dev, non_blocking=True), s.to(dev, non_blocking=True))
+                    total = part if total is None else total + part
+                return total / torch.full((), float(n), device=dev)
+            return _tree_map(leaf, *codes, *scales)
+
+        return [mean_on(dev) for dev in mesh.devices]
+
+    return allreduce

@@ -789,3 +789,93 @@ def test_pipeline_first_wave_on_the_card_matches_the_cpu(card):
     for name in ("src", "dst", "wgt", "knn_idx", "knn_wgt"):
         assert np.array_equal(getattr(gpu.graph, name), getattr(cpu.graph, name)), name
     assert np.abs(gpu.graph.f - cpu.graph.f).max() <= 20 * DELTA
+
+
+# --------------------------------------------------------------------- #
+# the LM training slice: the train step, the optimizer and remat on the card
+# --------------------------------------------------------------------- #
+def _smoke_pair(card, **over):
+    from repro_torch.configs.registry import get_smoke_config, override
+    from repro_torch.models.api import build_model
+
+    cfg = override(get_smoke_config("qwen3_0_6b"), **over)
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """3 train steps of the qwen3 smoke config on the card and on the CPU
+    from the same weights and batches: losses within 0.02 and each leaf's
+    master within 0.2 of its movement (the bf16 bounds of
+    ``tests/test_torch_training.py``)."""
+    from repro_torch.training import optim
+    from repro_torch.training.trainer import make_train_step
+
+    cpu, gpu = _smoke_pair(card)
+    init = {n: p.detach().float().clone() for n, p in cpu.named_parameters()}
+    cfg = optim.OptConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    steps = [make_train_step(m, cfg) for m in (cpu, gpu)]
+    states = [optim.init_state(dict(m.named_parameters())) for m in (cpu, gpu)]
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cpu.cfg.vocab, (4, 16)).astype(np.int32))
+        batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+        states[0], lc, _ = steps[0](states[0], batch)
+        states[1], lg, _ = steps[1](states[1], {k: v.to(card) for k, v in batch.items()})
+        assert abs(float(lc) - float(lg)) <= 0.02
+    for name, start in init.items():
+        got, want = states[1]["master"][name].cpu(), states[0]["master"][name]
+        assert (got - want).norm() <= 0.2 * (want - start).norm(), name
+    assert int(states[1]["step"]) == 3 and states[1]["step"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("clip", [1e9, 1e-3], ids=["unclipped", "clipped"])
+def test_optimizer_update_on_the_card_matches_the_cpu(card, clip):
+    """``optim.update`` on the card against the CPU on the same state and
+    grads, 5 steps, bit for bit: every op is elementwise and IEEE-rounded on
+    both, the schedule's cos and the bias corrections' pow are rounded from
+    fp64, and the global norm (the clip scale) sums in fp64 and rounds once."""
+    from repro_torch.training import optim
+
+    cpu, _ = _smoke_pair(card)
+    params = {n: p.detach() for n, p in cpu.named_parameters()}
+    dtypes = {n: p.dtype for n, p in params.items()}
+    cfg = optim.OptConfig(lr=1e-2, warmup_steps=2, total_steps=20, clip_norm=clip)
+    sc = optim.init_state(params)
+    sg = optim.init_state({n: p.to(card) for n, p in params.items()})
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(5):
+        grads = {n: (torch.randn(p.shape, generator=gen) * 1e-3).to(p.dtype)
+                 for n, p in params.items()}
+        norm = optim.global_norm(grads)
+        assert (float(norm) > clip) == (clip < 1)
+        assert torch.equal(optim.global_norm({n: g.to(card) for n, g in grads.items()}).cpu(),
+                           norm)
+        pc, sc = optim.update(cfg, sc, grads, dtypes)
+        pg, sg = optim.update(cfg, sg, {n: g.to(card) for n, g in grads.items()}, dtypes)
+        for key in ("master", "m", "v"):
+            for n in params:
+                assert torch.equal(sg[key][n].cpu(), sc[key][n]), (key, n)
+        for n in params:
+            assert torch.equal(pg[n].cpu(), pc[n])
+
+
+def test_remat_changes_no_gradient_on_the_card(card):
+    """``remat="full"`` against ``"none"`` on the card: the loss and every
+    gradient bit for bit."""
+    grads = []
+    for remat in ("full", "none"):
+        _, gpu = _smoke_pair(card, remat=remat)
+        params = dict(gpu.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        toks = torch.from_numpy(np.random.default_rng(4).integers(0, 128, (4, 32))).to(card)
+        loss, _ = gpu.loss({"tokens": toks, "labels": toks.roll(-1, dims=1)})
+        grads.append((loss.detach(), torch.autograd.grad(loss, list(params.values())),
+                      list(params)))
+    (lf, gf, names), (ln, gn, _) = grads
+    assert torch.equal(lf, ln)
+    for name, a, b in zip(names, gf, gn):
+        assert torch.equal(a, b), name

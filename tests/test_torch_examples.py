@@ -3,8 +3,10 @@ their inline assertions: ``examples/torch_quickstart.py`` (accuracy
 against the ground truth ≥ 0.99, as the reference's quickstart reaches,
 and agreement with the harmonic optimum > 0.97), ``torch_dynamic_stream.py``
 (its four parts, the 8-shard mesh on the CPU included),
-``torch_serve_lp.py`` and ``torch_serve_lm.py`` (qwen3-0.6b's smoke config,
-and h2o-danube-3-4b's, whose cache is a ring buffer)."""
+``torch_serve_lp.py``, ``torch_serve_lm.py`` (qwen3-0.6b's smoke config,
+and h2o-danube-3-4b's, whose cache is a ring buffer) and
+``torch_semi_supervised_lm.py`` (curation, then 30 training steps of the
+smoke config: pseudo-label quality and purity > 0.9, last loss < first)."""
 
 import importlib.util
 import pathlib
@@ -58,9 +60,18 @@ def test_serve_lm(arch):
     assert engine.decode_calls == engine.prefill_calls + engine.steps
 
 
+def test_semi_supervised_lm(tmp_path):
+    ex = _load("torch_semi_supervised_lm")
+    out = ex.main(["--device", "cpu", "--steps", "30", "--ckpt-dir", str(tmp_path),
+                   "--ckpt-every", "20"])
+    assert out["quality"] > 0.9 and out["purity"] > 0.9 and out["sweeps"] > 0
+    assert len(out["losses"]) == 30 and out["losses"][-1] < out["losses"][0]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000020"]
+
+
 def test_examples_import_neither_jax_nor_the_reference():
     for name in ("torch_quickstart", "torch_dynamic_stream", "torch_serve_lp",
-                 "torch_serve_lm"):
+                 "torch_serve_lm", "torch_semi_supervised_lm"):
         src = (EXAMPLES / f"{name}.py").read_text()
         assert "import jax" not in src and "from repro." not in src and \
             "import repro\n" not in src, name
