@@ -213,6 +213,35 @@ Phases (each prints its lines and its seconds; any failed check raises):
    more steps run, ``restore`` into a fresh model: every leaf bitwise, and
    those two steps after the restore within the gap of the same steps run
    twice of the uninterrupted ones.  Path 9 runs no kernel but the sweep.
+15. Path 10, the moe and vlm families.  (a) Path 9's curation (3 waves of
+   400 64-token documents) over granite-moe-1b-a400m's vocabulary: every
+   sweep's result held to the plain version bitwise, sweep launches equal
+   to the sweeps, the other kernels 0.  (b) ``build_model(get_config(
+   "granite-moe-1b-a400m"))`` at its full published config (24 layers,
+   d_model 1024, GQA 16/8, 32 experts top-8, d_expert 512, vocab 49,155;
+   bf16 weights and fp32 routers from a seeded generator) behind
+   ``ServeEngine(max_batch=8, s_max=256)``: 16 requests of 32 curated
+   tokens, 16 new tokens each.  On the first pooled step with every slot
+   busy each MoE layer's bf16 input is kept, and the bf16 block is held to
+   its fp32 upcast on it (the same top-k and aux, the outputs within
+   ``MOE_TOL``); the dispatch's drops are counted.  It prints the pooled
+   step's median and p99 ms, tokens a second, a step's kernel time and
+   launches from ``torch.profiler`` beside its bound (every weight read:
+   the capacity products touch all 32 experts), and, reported, not held,
+   the logits' gap to the plain fp32 forward of each request's tokens and
+   its greedy agreement.  (c) The same model trains 30 steps of 8 x 64
+   curated tokens through ``make_train_step`` (``remat="full"``, lr 3e-3,
+   warmup 10): the last loss below the first, every aux in (0, E], loss =
+   xent + 0.01·aux, every gradient finite, the per-layer check on a
+   training batch; step median/p99 ms, tokens a second, kernel time and
+   launches, the bound, peak memory.  (d) qwen2-vl-72b at its full width
+   cut to 4 of its 80 layers (6,012,608,512 parameters): ``prefill``,
+   ``loss`` and the forward of one multimodal 2 x 256 batch of
+   ``launch/specs.make_batch`` (64 patch embeddings, 192 text tokens,
+   ``pos3``) within ``LM_TOL`` of the fp32 forward; then ``ServeEngine``
+   serves 8 text prompts of 32 curated tokens (1-D RoPE, as the
+   reference's engine), every generated position within ``LM_TOL``.
+   Path 10 runs no kernel but the sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -222,7 +251,9 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
+import gc
 import hashlib
 import importlib.util
 import json
@@ -282,8 +313,10 @@ from repro_torch.kernels import landmark_propagate as landmark_module  # noqa: E
 from repro_torch.kernels.landmark_propagate import ASSIGN_CHUNK, LandmarkConfig  # noqa: E402
 from repro_torch.kernels.ops import (propagate_full_ell, run_propagation,  # noqa: E402
                                      select_backend)
+from repro_torch.launch.specs import make_batch  # noqa: E402
 from repro_torch.launch.train import checkpoint_tree, restore_into  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.common import ShapeSpec  # noqa: E402
 from repro_torch.models.convert import lm_params_to_tree, to_tree  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
@@ -2955,17 +2988,18 @@ def instrument_training(ex, rec):
                     setattr(optim_module, "update", update))
 
 
-def train_bound_ms(cfg, n_params):
+def train_bound_ms(cfg, n_params, n_active=None):
     """The least time (ms) an H100 takes for one train step of
     ``TRAIN_BATCH × TRAIN_SEQ`` tokens: the bf16 products of forward and
-    backward (6 × the parameters outside the embedding gather × tokens) at
-    the dense bf16 rate, the fp32 attention scores and probs·v over the
+    backward (6 × the parameters outside the embedding gather × tokens; of
+    an MoE model the ``n_active`` a token uses, its top-k experts) at the
+    dense bf16 rate, the fp32 attention scores and probs·v over the
     causal triangle (forward and backward, 3 × 4·B·H·hd·S(S+1)/2 a layer) at
     the fp32 rate, and the optimizer's bytes (read master, m, v and the bf16
     grad, write master, m, v and the bf16 param: 28 B a parameter) at the
     HBM rate.  Returns (total, products, attention, optimizer)."""
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    bf16_ops = 6 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    bf16_ops = 6 * ((n_active or n_params) - cfg.vocab * cfg.d_model) * tokens
     att_ops = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 \
         * cfg.n_layers
     opt_bytes = 28 * n_params
@@ -3318,6 +3352,421 @@ def phase_train(card):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the moe and vlm families (path 10)
+# --------------------------------------------------------------------- #
+MOE_ARCH = "granite-moe-1b-a400m"  # full published config (configs/granite_moe_1b_a400m.py)
+VLM_ARCH = "qwen2-vl-72b"  # every width of configs/qwen2_vl_72b.py, cut to VLM_LAYERS layers
+VLM_LAYERS = 4  # its 80 layers are 145 GB of bf16 weights; 4 keep every width in 12 GB
+FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 16, 8, 32, 16
+FAM_STEPS = 30  # (c): train steps of TRAIN_BATCH x TRAIN_SEQ curated tokens
+VLM_BATCH, VLM_SEQ = 2, 256  # (d): 64 patch embeddings and 192 text tokens a row
+# The MoE block in bf16 against its fp32 upcast on the same bf16 input: both
+# route through the same fp32 router on the same values, so they route alike;
+# the outputs agree within 2^-6 of the layer's largest |y_fp32|.  The bf16
+# block rounds x.w1, x.w3, their silu product and h.w2 to bf16 (2^-9
+# relative each) before the fp32 k-sum, about 2^-7 of the output's scale at
+# its worst element: the bound a bf16 MLP is held to against the reference
+# in tests/test_torch_lm.py.
+MOE_TOL = 2.0 ** -6
+
+
+def moe_inputs(model):
+    """Forward hooks that keep each MoE layer's first input while ``rec["on"]``
+    is set; returns (rec, remove)."""
+    rec = dict(on=False, x={})
+
+    def hook(layer):
+        def keep(_module, args, _out):
+            if rec["on"] and layer not in rec["x"]:
+                rec["x"][layer] = args[0].detach().clone()
+        return keep
+
+    handles = [blk.moe.register_forward_hook(hook(i)) for i, blk in enumerate(model.layers)]
+    return rec, lambda: [h.remove() for h in handles]
+
+
+def check_moe_layers(model, xs, what, card):
+    """Each MoE layer of ``model`` on its kept bf16 input ``xs[layer]``,
+    against an fp32 upcast of the same block on the same input: the same
+    top-k choices and aux bit for bit (the router is fp32 in both), the
+    outputs within ``MOE_TOL`` of the fp32 output's largest |y|.  Returns
+    the worst ratio and the choices the dispatch dropped."""
+    require(len(xs) == len(model.layers), f"path 10 {what}: {len(xs)} MoE inputs kept")
+    worst, dropped, choices = 0.0, 0, 0
+    per_layer = []
+    with torch.no_grad():
+        for layer, x in sorted(xs.items()):
+            moe = model.layers[layer].moe
+            twin = copy.deepcopy(moe).float()
+            y16, aux16 = moe(x)
+            y32, aux32 = twin(x.float())
+            xg = x.reshape(1, -1, x.shape[-1]) if x.shape[1] == 1 else x
+            _, _, top16 = moe.route(xg)
+            _, _, top32 = twin.route(xg.float())
+            keep = moe.dispatch(top16, xg.shape[1])[3]
+            ratio = float((y16.float() - y32).abs().max() / y32.abs().max())
+            require(torch.equal(top16, top32) and torch.equal(aux16, aux32),
+                    f"path 10 {what}: layer {layer} routes otherwise in fp32")
+            require(ratio <= MOE_TOL, f"path 10 {what}: layer {layer}'s bf16 MoE is {ratio} of "
+                    f"its scale from fp32, tolerance {MOE_TOL}")
+            worst = max(worst, ratio)
+            dropped += int((~keep).sum())
+            choices += keep.numel()
+            per_layer.append(int((~keep).sum()))
+            del twin
+    print(f"   [{card}] {what}: every MoE layer's bf16 block vs its fp32 upcast on its kept "
+          f"input ({tuple(xs[0].shape)}): the same top-k and aux, max|dy| {worst:.5f} of the "
+          f"layer's max|y| (tolerance {MOE_TOL:.5f}); the dispatch dropped {dropped} of "
+          f"{choices} choices (per layer {per_layer})")
+    return dict(worst=worst, dropped=dropped, choices=choices, dropped_per_layer=per_layer)
+
+
+def phase_family_curation(card):
+    """Path 10 (a): ``examples/torch_semi_supervised_lm.py``'s curation on
+    the card (3 waves of 400 64-token documents over granite-moe's
+    vocabulary), every sweep's result held to the plain version bitwise."""
+    ex = load_example("torch_semi_supervised_lm")
+    kept = []
+
+    def sweep_kept(*a, **kw):  # a sweep's inputs and outputs are not written after it
+        out = ell_propagate_step(*a, **kw)
+        kept.append((a, kw, out))
+        return out
+
+    ops_module.ell_propagate_step = sweep_kept
+    t0 = time.perf_counter()
+    try:
+        cur = ex.curate(np.random.default_rng(0), get_config(MOE_ARCH).vocab,
+                        torch.device("cuda"))
+    finally:
+        ops_module.ell_propagate_step = ell_propagate_step
+    curate_s = time.perf_counter() - t0
+    launches = read_launches()
+    err = 0.0
+    for a, kw, (f, changed) in kept:
+        want_f, want_ch = ell_propagate_ref(*a, **kw)
+        require(torch.equal(f.view(torch.int32), want_f.view(torch.int32))
+                and torch.equal(changed, want_ch), "path 10: a sweep != its plain version")
+        err = max(err, float((f - want_f).abs().max()) if f.numel() else 0.0)
+    print(f"   [{card}] (a) curation {curate_s:.1f} s: {cur['sweeps']} sweeps, launches "
+          f"{launches}; every sweep == its plain version bitwise; accuracy "
+          f"{cur['quality']:.4f}, purity {cur['purity']:.4f}, {len(cur['curated'])} documents")
+    require(launches["ell"] == cur["sweeps"] == len(kept) > 0 and
+            all(n == 0 for key, n in launches.items() if key != "ell"),
+            f"path 10: launches {launches} for {cur['sweeps']} sweeps")
+    require(cur["quality"] > 0.9 and cur["purity"] > 0.9,
+            f"path 10: accuracy {cur['quality']}, purity {cur['purity']}")
+    require(len(cur["curated"]) >= FAM_REQUESTS, f"path 10: {len(cur['curated'])} documents")
+    return dict(sweeps=cur["sweeps"], curated=cur["curated"], accuracy=cur["quality"],
+                purity=cur["purity"], curate_s=curate_s, sweep_err=err)
+
+
+def fixed_requests(curated, n, seed):
+    """``n`` requests, each the first ``FAM_PROMPT`` tokens of a curated
+    document and ``FAM_NEW`` new tokens."""
+    docs = np.random.default_rng(seed).choice(len(curated), n, replace=False)
+    return [Request(uid=i, prompt=curated[d][:FAM_PROMPT].copy(), max_new=FAM_NEW)
+            for i, d in enumerate(docs)]
+
+
+def serve_recorded(model, reqs):
+    """``reqs`` through a fresh ``ServeEngine(max_batch=8, s_max=256)``,
+    recorded as path 8 records it; every MoE layer's input is kept on the
+    first pooled step with every slot busy."""
+    engine = ServeEngine(model, max_batch=LM_POOL, s_max=LM_S_MAX)
+    rec = record_engine(engine)
+    caps, remove = moe_inputs(model) if model.cfg.family == "moe" else (None, lambda: None)
+    step = engine.step
+
+    def step_kept():
+        if caps is not None:
+            caps["on"] = all(s is not None for s in engine.slots) and not caps["x"]
+        step()
+        if caps is not None:
+            caps["on"] = False
+
+    engine.step = step_kept
+    t0 = time.perf_counter()
+    try:
+        done = engine.run(reqs)
+    finally:
+        remove()
+    rec["run_s"] = time.perf_counter() - t0
+    require(len(done) == len(reqs) and all(len(r.out) == r.max_new for r in reqs),
+            f"path 10: {len(done)} of {len(reqs)} requests finished with their max_new tokens")
+    steps, full = np.array(rec["step_ms"]), np.array(rec["active"]) == LM_POOL
+    rec.update(p50=float(np.median(steps)), p99=float(np.percentile(steps, 99)),
+               tok_s=float(LM_POOL * full.sum() / (steps[full].sum() / 1e3)),
+               full_steps=int(full.sum()), kept=None if caps is None else caps["x"])
+    return engine, rec
+
+
+def fp32_gaps(ref, reqs, rec, prefix=None):
+    """Per request, the engine's logits rows against the fp32 forward of
+    the same weights teacher-forced over prompt and output: (max |diff|, the
+    positions whose fp32 top-2 margin exceeds 2 x LM_TOL, the greedy
+    tokens that differ from the fp32 argmax there, all positions)."""
+    err, wide, flips, total = 0.0, 0, 0, 0
+    for r in reqs:
+        toks = torch.as_tensor(np.concatenate([r.prompt, np.asarray(r.out[:-1])])[None],
+                               dtype=torch.int64, device=ref.device)
+        want = ref(toks, *(prefix or ()))[0][len(r.prompt) - 1:]
+        got = torch.stack(rec["rows"][r.uid])
+        require(got.shape == want.shape and torch.isfinite(got).all(),
+                f"path 10: request {r.uid}'s logits {tuple(got.shape)} vs {tuple(want.shape)}")
+        e, margin, ref_tok = lm_gap(got, want)
+        mask = margin > 2 * LM_TOL
+        err = max(err, e)
+        wide += int(mask.sum())
+        flips += int(((torch.as_tensor(r.out, device=ref.device) != ref_tok) & mask).sum())
+        total += len(r.out)
+    return err, wide, flips, total
+
+
+def phase_moe_serve(curated, card):
+    """Path 10 (b): granite-moe-1b-a400m at its full published config
+    behind ``ServeEngine(max_batch=8, s_max=256)``, 16 requests of 32
+    curated tokens and 16 new tokens; every MoE layer held to its fp32
+    upcast on one pooled decode step; the whole model's gap to the fp32
+    forward reported."""
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in params.items()
+                       if n.split(".")[-1] in ("w1", "w2", "w3") and ".moe." in n)
+    require(n_params == cfg.num_params() + cfg.d_model and
+            all(p.dtype == (torch.float32 if n.endswith("router") else torch.bfloat16)
+                for n, p in params.items()),
+            f"path 10: {n_params} parameters, ArchConfig says {cfg.num_params()} + final_norm")
+    print(f"   {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv), {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_expert "
+          f"{cfg.moe.d_expert}, vocab {cfg.vocab}: {n_params:,} parameters "
+          f"({cfg.num_active_params():,} active a token), {weight_bytes:,} B of weights (fp32 "
+          f"routers), {expert_bytes:,} B of them experts, drawn in {build_s:.1f} s")
+    reqs = fixed_requests(curated, FAM_REQUESTS, seed=1)
+    engine, rec = serve_recorded(model, reqs)
+    cache_bytes = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
+    print(f"   [{card}] (b) {FAM_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
+          f"each, in {rec['run_s']:.1f} s: {engine.steps} pooled steps, {engine.prefill_calls} "
+          f"prefill calls; a pooled decode step median {rec['p50']:.2f} ms, p99 "
+          f"{rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at {LM_POOL} slots "
+          f"({rec['full_steps']} full steps); prefill {prefill_ms:.2f} ms a prompt token; "
+          f"max_memory_allocated {peak:,} B")
+    step_device_ms, kernels = decode_device_time(model, engine)
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    read = weight_bytes - embed_bytes + LM_POOL * cfg.d_model * 2 + 2 * cache_bytes
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    print(f"   [{card}] one pooled decode step on the card (torch.profiler, 3 steps): "
+          f"{step_device_ms:.3f} ms of kernels ({kernels:.0f} launches), busy "
+          f"{step_device_ms / rec['p50']:.1%} of the median step; bound {bound_ms:.3f} ms "
+          f"(bytes: every weight but the embedding read once, the capacity products touching "
+          f"all {cfg.moe.num_experts} experts a layer; 8 embedding rows; the cache read and "
+          f"written once: {read:,} B)")
+    layers = check_moe_layers(model, rec["kept"], "a pooled decode step", card)
+    ref = lm_fp32_reference(model)
+    err, wide, flips, total = fp32_gaps(ref, reqs, rec)
+    del ref
+    print(f"   [{card}] reported, not held: logits vs the fp32 forward of each request's tokens "
+          f"(its own capacity groups, not the pool's) max|diff| {err:.4f}; greedy tokens "
+          f"equal to its argmax at {wide - flips} of the {wide} of {total} positions whose "
+          f"top-2 margin exceeds {2 * LM_TOL}")
+    return dict(model=model, moe_step_ms_p50=rec["p50"], moe_step_ms_p99=rec["p99"],
+                moe_tokens_per_s=rec["tok_s"], moe_prefill_ms_per_token=prefill_ms,
+                moe_step_device_ms=step_device_ms, moe_step_launches=kernels,
+                moe_step_bound_ms=bound_ms, moe_serve_peak_bytes=peak,
+                moe_decode_layers=layers, moe_fp32_gap=err, moe_greedy=(wide - flips, wide),
+                moe_serve_s=rec["run_s"])
+
+
+def phase_moe_train(model, curated, card):
+    """Path 10 (c): the served model trains ``FAM_STEPS`` steps of 8 x 64
+    curated tokens through ``make_train_step`` (``remat="full"``, lr 3e-3,
+    warmup 10): the loss falls, every aux lies in (0, E], loss = xent +
+    0.01·aux, every gradient is finite; every MoE layer held to its fp32
+    upcast on a training batch."""
+    cfg = model.cfg
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=FAM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt_cfg)
+    state = optim_module.init_state(dict(model.named_parameters()))
+    rng = np.random.default_rng(1)
+    update, finite = optim_module.update, []
+
+    def checked(cfg_, st, grads, dtypes):
+        finite.append(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        return update(cfg_, st, grads, dtypes)
+
+    losses, parts, ms = [], [], []
+    optim_module.update = checked
+    t_all = time.perf_counter()
+    try:
+        for _ in range(FAM_STEPS):
+            idx = rng.integers(0, len(curated), size=TRAIN_BATCH)
+            toks = torch.as_tensor(curated[idx], dtype=torch.int32, device=model.device)
+            batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, met = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            parts.append((met["xent"], met["aux"]))
+    finally:
+        optim_module.update = update
+    train_s = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    losses_f = [float(x) for x in losses]
+    auxs = [float(a) for _, a in parts]
+    sums = max(float((l - (x + 0.01 * a)).abs() / l.abs()) for l, (x, a) in zip(losses, parts))
+    all_finite = bool(torch.stack(finite).all())
+    steps = np.array(ms[1:])  # the first step allocates the state
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (np.median(steps) / 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_kernel_ms, step_launches, state = step_device_time(model, state, batch, opt_cfg)
+    bound = train_bound_ms(cfg, n_params, cfg.num_active_params())
+    print(f"   [{card}] (c) {cfg.name} at full width, remat {cfg.remat!r}: {FAM_STEPS} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} curated tokens in {train_s:.1f} s; loss {losses_f[0]:.4f} "
+          f"-> {losses_f[-1]:.4f}; aux {min(auxs):.4f}-{max(auxs):.4f} (E = "
+          f"{cfg.moe.num_experts}); max |loss - (xent + 0.01 aux)| / loss {sums:.1e}; every "
+          f"gradient finite: {all_finite}")
+    print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; {tok_s:.0f} tokens/s; first step {ms[0]:.1f} ms; "
+          f"one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms of kernels "
+          f"({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}; bound "
+          f"{bound[0]:.2f} ms (bf16 products of the active parameters {bound[1]:.2f}, fp32 "
+          f"attention {bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated "
+          f"{peak:,} B")
+    require(np.isfinite(losses_f).all() and losses_f[-1] < losses_f[0],
+            f"path 10: loss {losses_f[0]} -> {losses_f[-1]}")
+    require(all(np.isfinite(a) and 0 < a <= cfg.moe.num_experts for a in auxs),
+            f"path 10: aux {auxs}")
+    require(sums <= 1e-6, f"path 10: loss != xent + 0.01 aux by {sums}")
+    require(all_finite, "path 10: a gradient is not finite")
+    caps, remove = moe_inputs(model)
+    caps["on"] = True
+    try:
+        with torch.no_grad():
+            model.loss(batch)
+    finally:
+        remove()
+    layers = check_moe_layers(model, caps["x"], "a training batch", card)
+    del state
+    return dict(train_losses=losses_f, train_aux=auxs, train_s=train_s,
+                train_step_ms_p50=float(np.median(steps)),
+                train_step_ms_p99=float(np.percentile(steps, 99)), train_tokens_per_s=float(tok_s),
+                train_step_kernel_ms=step_kernel_ms, train_step_launches=step_launches,
+                train_bound_ms=bound, train_peak_bytes=peak, train_layers=layers)
+
+
+def phase_vlm(curated, card):
+    """Path 10 (d): qwen2-vl-72b at its full width cut to ``VLM_LAYERS``
+    layers: ``prefill`` and ``loss`` of one multimodal batch of 2 x 256
+    (``launch/specs.make_batch``: 64 patch embeddings, 192 text tokens,
+    ``pos3``) held within ``LM_TOL`` of the fp32 forward; then
+    ``ServeEngine`` serves 8 text prompts of 32 curated tokens (no
+    ``pos3``: 1-D RoPE, as the reference's engine), held the same way."""
+    cfg = override(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.num_params() + cfg.d_model,
+            f"path 10: {n_params} parameters, ArchConfig says {cfg.num_params()} + final_norm")
+    batch = make_batch(cfg, ShapeSpec("t", VLM_SEQ, VLM_BATCH, "train"), seed=0)
+    s_vis, s_text = batch["vis_embeds"].shape[1], batch["tokens"].shape[1]
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        logits, cache = model.prefill(inputs)  # also the timing's warm-up
+        prefill_ms = _wall_ms(lambda: model.prefill(inputs))
+        loss, _ = model.loss(batch)
+        full = model(batch["tokens"], batch["vis_embeds"], batch["pos3"])
+    ref = lm_fp32_reference(model)
+    with torch.no_grad():
+        want = ref(batch["tokens"], batch["vis_embeds"], batch["pos3"])
+        want_loss, _ = ref.loss(batch)
+    err_full = float((full.float() - want).abs().max())
+    err_prefill = float((logits[:, 0].float() - want[:, -1]).abs().max())
+    err_loss = abs(float(loss) - float(want_loss))
+    peak = torch.cuda.max_memory_allocated()
+    lm_head = cfg.d_model * cfg.vocab
+    body = n_params - 2 * lm_head - cfg.frontend_dim * cfg.d_model  # layers and norms
+    bf16_ops = 2 * VLM_BATCH * (VLM_SEQ * body + s_vis * cfg.frontend_dim * cfg.d_model
+                                + lm_head)
+    fp32_ops = 2 * 2 * VLM_LAYERS * cfg.n_heads * cfg.hd * VLM_SEQ * (VLM_SEQ + 1) / 2 * VLM_BATCH
+    bound_ms = (bf16_ops / BF16_FLOPS + fp32_ops / F32_FLOPS) * 1e3
+    print(f"   {cfg.name} cut to {VLM_LAYERS} of 80 layers, every width kept (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, frontend_dim {cfg.frontend_dim}, M-RoPE): {n_params:,} parameters, "
+          f"drawn in {build_s:.1f} s")
+    print(f"   [{card}] (d) prefill of {VLM_BATCH} x {VLM_SEQ} ({s_vis} patch embeddings + "
+          f"{s_text} text tokens, pos3): {prefill_ms:.2f} ms (median of 3 after a warm-up); "
+          f"bound {bound_ms:.3f} ms (operations: {bf16_ops:.3g} bf16, {fp32_ops:.3g} fp32); "
+          f"vs the fp32 forward: every logit {err_full:.4f}, prefill's last {err_prefill:.4f} "
+          f"(tolerance {LM_TOL}); loss {float(loss):.4f} vs {float(want_loss):.4f}; "
+          f"max_memory_allocated {peak:,} B (the fp32 forward's weights included)")
+    require(max(err_full, err_prefill) <= LM_TOL and err_loss <= 2 * LM_TOL,
+            f"path 10: the vlm's logits {err_full}, {err_prefill} or loss {err_loss} off fp32")
+    del full, want, cache
+    torch.cuda.reset_peak_memory_stats()
+    reqs = fixed_requests(curated, VLM_REQUESTS, seed=2)
+    engine, rec = serve_recorded(model, reqs)
+    serve_peak = torch.cuda.max_memory_allocated()
+    no_patches = (torch.zeros((1, 0, cfg.frontend_dim), device=model.device),)
+    with torch.no_grad():
+        err, wide, flips, total = fp32_gaps(ref, reqs, rec, prefix=no_patches)
+    del ref
+    print(f"   [{card}] {VLM_REQUESTS} text prompts of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
+          f"each: a pooled decode step median {rec['p50']:.2f} ms, p99 {rec['p99']:.2f} ms, "
+          f"{rec['tok_s']:.1f} tokens/s; logits vs the fp32 forward {err:.4f} (tolerance "
+          f"{LM_TOL}); greedy tokens equal to its argmax at {wide - flips} of the {wide} of "
+          f"{total} positions whose top-2 margin exceeds {2 * LM_TOL}; max_memory_allocated "
+          f"{serve_peak:,} B (the fp32 forward's weights included)")
+    require(err <= LM_TOL, f"path 10: the vlm's served logits {err} from fp32")
+    require(flips == 0, f"path 10: {flips} vlm greedy tokens differ where the margin is wide")
+    return dict(vlm_prefill_ms=prefill_ms, vlm_prefill_bound_ms=bound_ms, vlm_err_full=err_full,
+                vlm_err_prefill=err_prefill, vlm_loss=float(loss), vlm_fp32_loss=float(want_loss),
+                vlm_peak_bytes=peak, vlm_step_ms_p50=rec["p50"], vlm_step_ms_p99=rec["p99"],
+                vlm_serve_err=err, vlm_serve_peak_bytes=serve_peak)
+
+
+def phase_families(card):
+    """Path 10: curation on the card, then granite-moe-1b-a400m served and
+    trained at full width, then qwen2-vl-72b at full width and 4 layers.
+    Every wrapper's count is set to 0 before (a) and read after (d)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # paths 8 and 9's models are gone
+    reset_launches()
+    out = phase_family_curation(card)
+    times = {}
+    for part, run in (("b", lambda: phase_moe_serve(out["curated"], card)),
+                      ("c", lambda: phase_moe_train(out.pop("model"), out["curated"], card)),
+                      ("d", lambda: phase_vlm(out["curated"], card))):
+        t0 = time.perf_counter()
+        out.update(run())
+        gc.collect()
+        torch.cuda.empty_cache()
+        times[part] = time.perf_counter() - t0
+        print(f"   ({part}) {times[part]:.1f} s", flush=True)
+    out["part_s"] = times
+    out["launches"] = read_launches()
+    print(f"   path 10 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"]["ell"] == out["sweeps"] and
+            all(n == 0 for key, n in out["launches"].items() if key != "ell"),
+            f"path 10: launches {out['launches']} for {out['sweeps']} sweeps")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -3376,12 +3825,16 @@ def main(argv=None) -> int:
         out8 = phase_lm(args.vertices, card)
     with Phase(f"path 9: the curated documents train {LM_ARCH} at full width"):
         out9 = phase_train(card)
+    with Phase(f"path 10: {MOE_ARCH} serves and trains at full width, {VLM_ARCH} at "
+               f"{VLM_LAYERS} layers"):
+        out10 = phase_families(card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
-                 path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"])
+                 path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"],
+                 path10=out10["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

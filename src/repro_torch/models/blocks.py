@@ -1,12 +1,14 @@
-"""Layer blocks: GQA attention and the dense MLP (SwiGLU or GELU).
+"""Layer blocks: GQA attention, the dense MLP (SwiGLU or GELU) and the
+token-choice MoE.
 
-Counterpart of the attention and MLP half of ``repro.models.blocks``.  The
-reference's ``<block>_init`` / ``<block>_apply`` pairs over dicts of arrays
-become ``nn.Module``s holding ``nn.Parameter``s under the reference's leaf
-names (``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w1``,
-``w3``, ``w2`` …, weights laid out ``(in, out)`` as there), each with a
-``forward`` for a whole sequence and, for attention, a ``decode`` against a
-KV cache.  The MoE, Mamba2 and xLSTM blocks are later slices (``ROADMAP.md``).
+Counterpart of the attention, MLP and MoE part of ``repro.models.blocks``.
+The reference's ``<block>_init`` / ``<block>_apply`` pairs over dicts of
+arrays become ``nn.Module``s holding ``nn.Parameter``s under the reference's
+leaf names (``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w1``,
+``w3``, ``w2``, ``router`` …, weights laid out ``(in, out)`` as there), each
+with a ``forward`` for a whole sequence and, for attention, a ``decode``
+against a KV cache.  The Mamba2 and xLSTM blocks are a later slice
+(``ROADMAP.md`` queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import (
@@ -23,6 +26,7 @@ from repro_torch.models.common import (
     dense_init,
     gelu_mlp,
     mm,
+    mrope,
     rms_norm,
     rope,
     swiglu,
@@ -45,10 +49,10 @@ def _ones(n: int, gen: torch.Generator) -> nn.Parameter:
 # Attention
 # --------------------------------------------------------------------- #
 class Attention(nn.Module):
-    """Causal GQA attention with RoPE and optional qk-norm (``attn_init``
-    without biases).  The reference's biases, bidirectional attention and
-    M-RoPE positions serve the audio and vlm families, whose slices add
-    them (``ROADMAP.md`` items 9 and 10)."""
+    """Causal GQA attention with RoPE (M-RoPE under ``cfg.mrope`` when the
+    caller gives ``pos3``) and optional qk-norm (``attn_init`` without
+    biases).  The reference's biases and bidirectional attention serve the
+    audio family, whose slice adds them (``ROADMAP.md`` item 10)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
@@ -72,21 +76,25 @@ class Attention(nn.Module):
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         return q, k, v
 
-    def _apply_rope(self, q, k, positions):
+    def _apply_rope(self, q, k, positions, pos3):
+        """The reference's ``_apply_rope``: M-RoPE by the ``(3, B, S)``
+        ``pos3`` under ``cfg.mrope`` when it is given, else 1-D RoPE."""
         theta = self.cfg.rope_theta
+        if self.cfg.mrope and pos3 is not None:
+            return mrope(q, pos3, theta), mrope(k, pos3, theta)
         return rope(q, positions, theta), rope(k, positions, theta)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, pos3=None):
         """Full-sequence attention (train / prefill).  Returns (y, (k, v))."""
         cfg = self.cfg
         q, k, v = self._project_qkv(x)
-        q, k = self._apply_rope(q, k, positions)
+        q, k = self._apply_rope(q, k, positions, pos3)
         y = attention(q, k, v, causal=True, window=cfg.sliding_window,
                       impl=cfg.attn_impl, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
         b, s, _, _ = y.shape
         return mm(y.reshape(b, s, cfg.n_heads * cfg.hd), self.wo), (k, v)
 
-    def decode(self, x, k_cache, v_cache, pos):
+    def decode(self, x, k_cache, v_cache, pos, pos3=None):
         """One-token decode against a KV cache, written IN PLACE.
 
         ``k_cache``/``v_cache``: ``(B, S, Hkv, hd)``; this step's k and v
@@ -95,7 +103,8 @@ class Attention(nn.Module):
         input cache is left as it was, as the reference's functional update
         leaves it).  ``pos`` is the write index: a scalar (a uniform decode
         wave) or a ``(B,)`` vector (continuous batching: every slot at its
-        own position).  Sliding-window layers treat the cache as a ring
+        own position); ``pos3`` (``(3, B, 1)``, optional) rotates q and k by
+        M-RoPE in its place.  Sliding-window layers treat the cache as a ring
         buffer.  A write at or past the cache's end is DROPPED, as the
         reference's out-of-range scatter is (torch indexing would raise):
         the row keeps its old value and attends over the cache without the
@@ -105,7 +114,7 @@ class Attention(nn.Module):
         b = x.shape[0]
         q, k, v = self._project_qkv(x)  # s == 1
         pos_b = torch.as_tensor(pos, device=x.device).to(torch.int64).broadcast_to((b,))
-        q, k = self._apply_rope(q, k, pos_b[:, None])
+        q, k = self._apply_rope(q, k, pos_b[:, None], pos3)
         s_max = k_cache.shape[1]
         write = pos_b % s_max if cfg.sliding_window else pos_b
         keep = write < s_max
@@ -154,3 +163,112 @@ class MLP(nn.Module):
         if self.gelu:
             return gelu_mlp(x, self.w1, self.b1, self.w2, self.b2)
         return swiglu(x, self.w1, self.w3, self.w2)
+
+
+# --------------------------------------------------------------------- #
+# Mixture of Experts (token-choice top-k, scatter dispatch)
+# --------------------------------------------------------------------- #
+class MoE(nn.Module):
+    """Token-choice top-k MoE with row-local capacity (``moe_init``,
+    ``moe_apply``): an fp32 ``router`` ``(D, E)`` and bf16 SwiGLU experts
+    ``w1``/``w3`` ``(E, D, F)``, ``w2`` ``(E, F, D)``.
+
+    Each group of tokens (a batch row; at decode, S == 1, the whole batch
+    as one group) dispatches its own top-k choices into per-expert buffers
+    of ``cap = min(T, max(4, int(capacity_factor·T·k/E)))`` slots, in
+    token-major order with the choice index minor; choices past ``cap``
+    are dropped and fall through the caller's residual.  The dispatch moves
+    token ids only, the groups batched as tensor ops (the reference
+    ``vmap``s them).  Every op is deterministic on the card too, backward
+    included: the buffer is filled by an integer scatter-max, and the
+    gathers are advanced indexing, whose backward accumulates in sorted
+    order (``torch.gather``'s would use atomics)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        assert cfg.moe is not None
+        self.cfg = cfg
+        d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert
+        self.router = _param(dense_init(gen, (d, e), dtype=torch.float32))
+        self.w1 = _param(dense_init(gen, (e, d, f)))
+        self.w3 = _param(dense_init(gen, (e, d, f)))
+        self.w2 = _param(dense_init(gen, (e, f, d)))
+
+    def forward(self, x):
+        """(y, aux) of ``x`` ``(B, S, D)``: y in ``x``'s dtype, aux the
+        Switch-style load-balance loss (an fp32 scalar)."""
+        b, s, d = x.shape
+        if s == 1:  # decode: one group of B tokens
+            y, aux = self.grouped(x.reshape(1, b, d))
+            return y.reshape(b, s, d), aux
+        return self.grouped(x)
+
+    def route(self, x):
+        """The router on ``x`` ``(G, T, D)``: (gates ``(G, T, E)`` fp32, the
+        top-k gates renormalized and their experts ``(G, T, k)``), ties to
+        the lower expert as ``jax.lax.top_k`` breaks them."""
+        k = self.cfg.moe.top_k
+        gates = torch.softmax(mm(x.float(), self.router), dim=-1)
+        topw, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+        topw, topi = topw[..., :k], topi[..., :k]
+        return gates, topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), topi
+
+    def dispatch(self, topi, t: int):
+        """Index-only dispatch of the ``(G, T, k)`` choices: (``buf_idx``
+        ``(G, E, cap)`` token ids, -1 for an empty slot; each choice's
+        expert and slot, ``(0, 0)`` where dropped; the kept mask)."""
+        g, e, k = topi.shape[0], self.cfg.moe.num_experts, self.cfg.moe.top_k
+        cap = min(t, max(4, int(self.cfg.moe.capacity_factor * t * k / e)))
+        flat_e = topi.reshape(g, t * k)
+        oh = _one_hot(flat_e, e, torch.int64)
+        my_pos = torch.gather(torch.cumsum(oh, dim=1) - oh, 2, flat_e[..., None])[..., 0]
+        keep = my_pos < cap
+        idx_e = torch.where(keep, flat_e, 0)
+        idx_c = torch.where(keep, my_pos, 0)
+        tok = torch.where(keep, torch.arange(t * k, device=topi.device) // k, -1)
+        # the kept slots are unique; every dropped choice lands on (0, 0) with
+        # id -1, which the max never writes over a kept token
+        buf_idx = torch.full((g, e * cap), -1, dtype=torch.int64, device=topi.device)
+        buf_idx.scatter_reduce_(1, idx_e * cap + idx_c, tok, "amax")
+        return buf_idx.reshape(g, e, cap), idx_e, idx_c, keep
+
+    def experts(self, x, buf_idx):
+        """The experts on their buffers: ``(G, E, cap, D)`` outputs."""
+        rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        xe = x[rows, torch.clamp(buf_idx, min=0)] * (buf_idx >= 0)[..., None].to(x.dtype)
+        h = F.silu(_expert_mm(xe, self.w1)) * _expert_mm(xe, self.w3)
+        return _expert_mm(h, self.w2)
+
+    def grouped(self, x):
+        """``_moe_grouped``: (y ``(G, T, D)``, aux) of ``x`` ``(G, T, D)``."""
+        g, t, d = x.shape
+        e, k = self.cfg.moe.num_experts, self.cfg.moe.top_k
+        gates, topw, topi = self.route(x)
+        buf_idx, idx_e, idx_c, keep = self.dispatch(topi, t)
+        ye = self.experts(x, buf_idx)
+        # combine: the k choices summed in fp32, in the reference's order
+        # (its sum starts from zeros: 0 + c0 is c0's bits)
+        rows = torch.arange(g, device=x.device)[:, None, None]
+        w = (topw * keep.reshape(g, t, k)).float()
+        parts = ye[rows, idx_e.reshape(g, t, k), idx_c.reshape(g, t, k)].float() * w[..., None]
+        y = parts[:, :, 0]
+        for j in range(1, k):
+            y = y + parts[:, :, j]
+        # auxiliary load-balance loss (Switch-style)
+        me = gates.mean(dim=(0, 1))
+        ce = _one_hot(topi[..., 0], e, torch.float32).mean(dim=(0, 1))
+        return y.to(ye.dtype), e * torch.sum(me * ce)
+
+
+def _one_hot(idx, n: int, dtype):
+    """``F.one_hot`` without its range checks, which read the indices back
+    to the host (two syncs a call on the card)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _expert_mm(a, w):
+    """``(G, E, C, I) @ (E, I, O)`` per expert, with jnp's dtype promotion:
+    one batched product over E (``torch.matmul`` would copy the weights
+    for every group)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.einsum("geci,eio->geco", a.to(dt), w.to(dt))

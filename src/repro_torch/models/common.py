@@ -358,7 +358,7 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16, scale=None) ->
 
 
 # the ROADMAP.md queue 1 item that ports each family not yet in the port
-NOT_PORTED = {"moe": 9, "vlm": 9, "ssm": 10, "hybrid": 10, "audio": 10}
+NOT_PORTED = {"ssm": 10, "hybrid": 10, "audio": 10}
 
 
 def not_ported(cfg: ArchConfig) -> NotImplementedError:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, the ``dense`` family.
+"""Decoder-only transformer LM: the ``dense``, ``moe`` and ``vlm`` families.
 
 Counterpart of ``repro.models.transformer``.  The reference stacks its
 layers into one pytree with a leading L dim and drives them with
@@ -9,8 +9,11 @@ are installed, which no test or example does, so they are left out.  Its
 ``jax.checkpoint`` of each layer under ``cfg.remat == "full"`` becomes
 ``torch.utils.checkpoint`` of each ``Block`` while grad is enabled: the
 backward recomputes a layer's activations from its input, which changes
-memory, never values.  The ``moe`` and ``vlm`` families raise until their
-slice (``ROADMAP.md``).
+memory, never values (every op of a layer, the MoE's dispatch included, is
+deterministic).  A ``moe`` layer holds ``moe`` in place of ``mlp`` and adds
+its router's load-balance loss to ``loss``; a ``vlm`` model puts
+``vis_embeds @ frontend_proj`` before the tokens and rotates by the batch's
+M-RoPE ``pos3``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import MLP, Attention, _ones, _param
+from repro_torch.models.blocks import MLP, Attention, MoE, _ones, _param
 from repro_torch.models.common import ArchConfig, dense_init, mm, not_ported, rms_norm
 
 
@@ -36,29 +39,43 @@ def _xent(logits, labels, mask=None):
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``ln1`` → attention → residual, ``ln2`` → MLP →
-    residual (the reference's ``_layer_init`` tree, ``attn`` and ``mlp``)."""
+    """One pre-norm layer: ``ln1`` → attention → residual, ``ln2`` → MLP (or
+    MoE) → residual (the reference's ``_layer_init`` tree: ``attn`` and
+    ``mlp``, or ``moe`` in the moe family)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
         self.eps = cfg.norm_eps
         self.ln1, self.ln2 = _ones(cfg.d_model, gen), _ones(cfg.d_model, gen)
         self.attn = Attention(cfg, gen)
-        self.mlp = MLP(cfg, gen)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, gen)
+        else:
+            self.mlp = MLP(cfg, gen)
 
-    def forward(self, x, positions):
-        a, kv = self.attn(rms_norm(x, self.ln1, self.eps), positions)
+    def _ffn(self, x):
+        """(the MLP's or the MoE's output, the MoE's aux or None)."""
+        if hasattr(self, "moe"):
+            return self.moe(x)
+        return self.mlp(x), None
+
+    def forward(self, x, positions, pos3=None):
+        """(x after the layer, (k, v), the layer's aux or None)."""
+        a, kv = self.attn(rms_norm(x, self.ln1, self.eps), positions, pos3)
         x = x + a
-        return x + self.mlp(rms_norm(x, self.ln2, self.eps)), kv
+        m, aux = self._ffn(rms_norm(x, self.ln2, self.eps))
+        return x + m, kv, aux
 
-    def decode(self, x, k_cache, v_cache, pos):
-        x = x + self.attn.decode(rms_norm(x, self.ln1, self.eps), k_cache, v_cache, pos)
-        return x + self.mlp(rms_norm(x, self.ln2, self.eps))
+    def decode(self, x, k_cache, v_cache, pos, pos3=None):
+        x = x + self.attn.decode(rms_norm(x, self.ln1, self.eps), k_cache, v_cache, pos, pos3)
+        return x + self._ffn(rms_norm(x, self.ln2, self.eps))[0]
 
 
 class TransformerLM(nn.Module):
-    """Dense llama-style LM: embedding, ``n_layers`` blocks, ``final_norm``
-    and ``lm_head`` (the embedding's transpose under ``tie_embeddings``).
+    """Llama-style LM: embedding, ``n_layers`` blocks, ``final_norm`` and
+    ``lm_head`` (the embedding's transpose under ``tie_embeddings``); the
+    families ``dense``, ``moe`` (top-k MoE layers) and ``vlm`` (a
+    ``frontend_proj`` of patch embeddings put before the tokens, M-RoPE).
 
     Weights are bf16, drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (``None`` → ``cuda``; raises without one), so two models
@@ -70,7 +87,7 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: str | torch.device | None = None,
                  seed: int = 0):
         super().__init__()
-        if cfg.family != "dense" or cfg.enc_dec:
+        if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
             raise not_ported(cfg)
         self.cfg = cfg
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
@@ -78,6 +95,8 @@ class TransformerLM(nn.Module):
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
             self.lm_head = _param(dense_init(gen, (cfg.d_model, cfg.vocab)))
+        if cfg.frontend:
+            self.frontend_proj = _param(dense_init(gen, (cfg.frontend_dim, cfg.d_model)))
         self.layers = nn.ModuleList(Block(cfg, gen) for _ in range(cfg.n_layers))
 
     @property
@@ -91,25 +110,50 @@ class TransformerLM(nn.Module):
     def _positions(self, b, s):
         return torch.arange(s, dtype=torch.int32, device=self.device).broadcast_to((b, s))
 
+    def _embed_inputs(self, batch):
+        """The token embeddings; in the vlm family ``vis_embeds @
+        frontend_proj``, cast to the embedding's dtype, before them."""
+        h = self.embed[batch["tokens"]]  # (B, S_text, D)
+        if self.cfg.family == "vlm":
+            vis = mm(batch["vis_embeds"], self.frontend_proj)  # (B, S_vis, D)
+            h = torch.cat([vis.to(h.dtype), h], dim=1)
+        return h
+
+    def _pos3(self, batch):
+        return batch.get("pos3") if self.cfg.mrope else None
+
     # ---------------------------- forward ---------------------------- #
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits ``(B, S, V)`` of a whole sequence, no cache."""
-        h = self.embed[tokens]
-        positions = self._positions(*tokens.shape)
+    def _hidden(self, batch):
+        """(final-normed hidden states ``(B, S, D)`` of the whole sequence,
+        the layers' summed aux; a zero in the dense and vlm families)."""
+        h = self._embed_inputs(batch)
+        positions, pos3 = self._positions(*h.shape[:2]), self._pos3(batch)
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        auxs = []
         for layer in self.layers:
             if remat:  # the forward draws no random numbers: no RNG state to keep
-                h, _ = checkpoint(layer, h, positions, use_reentrant=False,
-                                  preserve_rng_state=False)
+                h, _, aux = checkpoint(layer, h, positions, pos3, use_reentrant=False,
+                                       preserve_rng_state=False)
             else:
-                h, _ = layer(h, positions)
-        return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
+                h, _, aux = layer(h, positions, pos3)
+            if aux is not None:
+                auxs.append(aux)
+        aux = torch.stack(auxs).sum() if auxs else torch.zeros((), device=h.device)
+        return rms_norm(h, self.final_norm, self.cfg.norm_eps), aux
+
+    def forward(self, tokens: torch.Tensor, vis_embeds=None, pos3=None) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of a whole sequence, no cache (in the vlm
+        family over the patch prefix and the tokens)."""
+        batch = {"tokens": tokens, "vis_embeds": vis_embeds, "pos3": pos3}
+        return self._logits(self._hidden(batch)[0])
 
     def loss(self, batch):
-        """Mean next-token cross entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (``loss_mask`` optional); (loss, metrics)."""
-        loss = _xent(self(batch["tokens"]), batch["labels"], batch.get("loss_mask"))
-        aux = torch.zeros((), device=loss.device)  # no router loss in a dense model
+        """Mean next-token cross entropy of ``batch["labels"]`` (the text
+        tail's positions in the vlm family; ``loss_mask`` optional) plus
+        0.01 × the router's aux; (loss, {"xent", "aux"})."""
+        h, aux = self._hidden(batch)
+        s_text = batch["labels"].shape[1]
+        loss = _xent(self._logits(h[:, -s_text:]), batch["labels"], batch.get("loss_mask"))
         return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
     # ---------------------------- serving ----------------------------- #
@@ -126,16 +170,15 @@ class TransformerLM(nn.Module):
                 for key, s in self.cache_shape(batch_size, s_max).items()}
 
     def prefill(self, batch):
-        """Full-sequence forward; returns (last-token logits, cache).  The
-        cache holds the prompt's S positions (the window's last ones under
-        a sliding window), bf16."""
+        """Full-sequence forward of ``batch`` (``loss``'s inputs, no labels);
+        returns (last-token logits, cache).  The cache holds the sequence's
+        S positions (the window's last ones under a sliding window), bf16."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        h = self.embed[tokens]
-        positions = self._positions(*tokens.shape)
+        h = self._embed_inputs(batch)
+        positions, pos3 = self._positions(*h.shape[:2]), self._pos3(batch)
         ks, vs = [], []
         for layer in self.layers:
-            h, (k, v) = layer(h, positions)
+            h, (k, v), _ = layer(h, positions, pos3)
             if cfg.sliding_window:
                 k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
             ks.append(k.to(torch.bfloat16))
@@ -145,10 +188,11 @@ class TransformerLM(nn.Module):
 
     def decode_step(self, cache, batch):
         """One token for every sequence; batch = {tokens (B,1), pos () or
-        (B,)}.  Returns (logits (B,1,V), new cache); ``cache`` itself is
-        not modified."""
+        (B,), pos3 (3,B,1) optional}.  Returns (logits (B,1,V), new cache);
+        ``cache`` itself is not modified."""
         new = {key: leaf.clone() for key, leaf in cache.items()}
         h = self.embed[batch["tokens"]]  # (B, 1, D)
+        pos3 = batch.get("pos3")
         for layer, k, v in zip(self.layers, new["k"], new["v"]):
-            h = layer.decode(h, k, v, batch["pos"])
+            h = layer.decode(h, k, v, batch["pos"], pos3)
         return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps)), new

@@ -879,3 +879,74 @@ def test_remat_changes_no_gradient_on_the_card(card):
     assert torch.equal(lf, ln)
     for name, a, b in zip(names, gf, gn):
         assert torch.equal(a, b), name
+
+
+# --------------------------------------------------------------------- #
+# the moe and vlm families: determinism and remat on the card
+# --------------------------------------------------------------------- #
+def _family_batch(cfg, card, seed):
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.common import ShapeSpec
+
+    return make_batch(cfg, ShapeSpec("t", 32, 4, "train"), seed=seed, device=card)
+
+
+def _loss_and_grads(model, batch):
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, metrics = model.loss(batch)
+    return loss.detach(), metrics["aux"].detach(), torch.autograd.grad(loss, list(params.values()))
+
+
+@pytest.mark.parametrize("name", ["granite_moe_1b_a400m", "olmoe_1b_7b"])
+def test_moe_is_bitwise_deterministic_on_the_card(card, name):
+    """The MoE block's forward and backward run twice on the card on the
+    same input give the same bits (the dispatch's integer scatter-max and
+    the gathers' sorted-order backward), at the block and through the
+    whole model's loss: what ``remat="full"``, which recomputes the forward
+    in the backward, relies on."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_smoke_config(name)
+    model = build_model(cfg, device=card)
+    moe = model.layers[0].moe
+    x = torch.randn((8, 40, cfg.d_model), generator=torch.Generator(device=card).manual_seed(1),
+                    device=card).to(torch.bfloat16)
+    x = x[:1, :1] + 0.05 * x  # crowded: capacity drops choices
+    for p in moe.parameters():
+        p.requires_grad_(True)
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_(True)
+        y, aux = moe(xi)
+        grads = torch.autograd.grad([y.float().square().sum(), aux],
+                                    [xi] + list(moe.parameters()))
+        runs.append([y, aux, *grads])
+    _, _, topi = moe.route(x)
+    assert int((~moe.dispatch(topi, x.shape[1])[3]).sum()) > 0  # some choices dropped
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    batch = _family_batch(cfg, card, seed=2)
+    first, second = _loss_and_grads(model, batch), _loss_and_grads(model, batch)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for a, b in zip(first[2], second[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["granite_moe_1b_a400m", "qwen2_vl_72b"])
+def test_family_remat_changes_no_gradient_on_the_card(card, name):
+    """``remat="full"`` against ``"none"`` on the card at the moe and vlm
+    smoke configs: the loss, the aux and every gradient bit for bit."""
+    from repro_torch.configs.registry import get_smoke_config, override
+    from repro_torch.models.api import build_model
+
+    runs = []
+    for remat in ("full", "none"):
+        cfg = override(get_smoke_config(name), remat=remat)
+        runs.append(_loss_and_grads(build_model(cfg, device=card), _family_batch(cfg, card, 3)))
+    (lf, af, gf), (ln, an, gn) = runs
+    assert torch.equal(lf, ln) and torch.equal(af, an)
+    for a, b in zip(gf, gn):
+        assert torch.equal(a, b)

@@ -44,8 +44,9 @@ from repro_torch.models.transformer import TransformerLM
 torch.set_num_threads(1)
 
 DENSE = ["qwen3_0_6b", "yi_6b", "deepseek_67b", "h2o_danube_3_4b"]
-NOT_PORTED = ["granite_moe_1b_a400m", "olmoe_1b_7b", "xlstm_350m", "zamba2_7b",
-              "qwen2_vl_72b", "whisper_medium"]
+NOT_PORTED = ["xlstm_350m", "zamba2_7b", "whisper_medium"]
+# the moe and vlm families: their parity tests are tests/test_torch_moe.py
+ROUTED_AND_VLM = ["granite_moe_1b_a400m", "olmoe_1b_7b", "qwen2_vl_72b"]
 LOGIT_TOL = {"fp32": 1e-4, "bf16": 0.1}
 CACHE_TOL = {"fp32": 0.0, "bf16": 0.0625}  # fp32: one bf16 ULP, relative (below)
 S_MAX = 16  # the decode cache; 20 steps run past its end (and wrap h2o's window)
@@ -387,7 +388,7 @@ def test_ring_buffer_wraps():
 SMOKE_DECODE = ShapeSpec("smoke_decode", seq_len=32, global_batch=2, kind="decode")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ROUTED_AND_VLM)
 def test_arch_smoke_decode_step(name):
     cfg = registry.get_smoke_config(name)
     model = build_model(cfg, device="cpu")

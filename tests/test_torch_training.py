@@ -51,6 +51,7 @@ from repro_torch.training.trainer import make_eval_step, make_train_step, split
 torch.set_num_threads(1)
 
 DENSE = ["qwen3_0_6b", "yi_6b", "deepseek_67b", "h2o_danube_3_4b"]
+ROUTED_AND_VLM = ["granite_moe_1b_a400m", "olmoe_1b_7b", "qwen2_vl_72b"]
 
 
 def _np(t):
@@ -292,7 +293,7 @@ def test_update_equals_the_reference(clip):
     assert mismatched == 0  # measured; a tie would be allowed above, and counted here
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ROUTED_AND_VLM)
 def test_decay_mask_equals_the_reference(name):
     params = jax_build_model(jreg.get_smoke_config(name)).init(jax.random.PRNGKey(0))
     want = {}
