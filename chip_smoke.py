@@ -193,7 +193,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    launches equal the waves' sweeps and the other kernels launch 0 times;
    accuracy and purity exceed 0.9.  (b) ``build_model(get_config(
    "qwen3-0.6b"))`` at its full published config (751,632,384 parameters,
-   bf16 from a seeded generator, ``remat="full"``) trains 200 steps of
+   bf16 from a seeded generator, ``remat="full"``) trains 30 steps (the
+   example's default is 200) of
    8 × 64 curated tokens through ``make_train_step`` (lr 3e-3, warmup 10):
    the last loss below the first.  It prints the step's median and p99 ms
    split at a sync into forward+backward and optimizer, tokens a second,
@@ -220,7 +221,7 @@ Phases (each prints its lines and its seconds; any failed check raises):
    "granite-moe-1b-a400m"))`` at its full published config (24 layers,
    d_model 1024, GQA 16/8, 32 experts top-8, d_expert 512, vocab 49,155;
    bf16 weights and fp32 routers from a seeded generator) behind
-   ``ServeEngine(max_batch=8, s_max=256)``: 16 requests of 32 curated
+   ``ServeEngine(max_batch=8, s_max=256)``: 8 requests of 32 curated
    tokens, 16 new tokens each.  On the first pooled step with every slot
    busy each MoE layer's bf16 input is kept, and the bf16 block is held to
    its fp32 upcast on it (the same top-k and aux, the outputs within
@@ -242,6 +243,31 @@ Phases (each prints its lines and its seconds; any failed check raises):
    serves 8 text prompts of 32 curated tokens (1-D RoPE, as the
    reference's engine), every generated position within ``LM_TOL``.
    Path 10 runs no kernel but the sweep.
+16. Path 11, the ssm family.  (a) The same curation over xlstm-350m's
+   vocabulary (50,304), every sweep held bitwise, sweep launches equal to
+   the sweeps, the other kernels 0.  (b) ``build_model(get_config(
+   "xlstm-350m"))`` at its full published config (24 layers: 3 macros of 7
+   mLSTM and 1 sLSTM, d_model 1024, 4 heads, proj_factor 2, conv_width 4,
+   chunk 256, vocab 50,304; 524,142,760 parameters, bf16 but the fp32
+   gates, nothing cut) behind ``ServeEngine(max_batch=8, s_max=256)``: 16
+   requests of 32 curated tokens, 16 new each, beside an fp32 twin driven
+   in lockstep (the same calls, tokens and slot adoptions, its own cache):
+   every served logit within ``XLSTM_TOL`` of the twin's; the pooled step's
+   median and p99 ms, tokens a second, kernel time and launches from
+   ``torch.profiler`` beside its bound (the bf16 weights, and the fp32
+   recurrent state read and written once), the peak; reported, not held,
+   the gap to a fresh fp32 forward of each request's own tokens (a reused
+   slot starts from its predecessor's state, as in the reference).  (c)
+   ``prefill`` of 2 x 256 curated tokens against a token-by-token
+   ``decode_step`` chain over them: the last logits within
+   ``XLSTM_CHAIN_TOL``, every state leaf within ``XLSTM_STATE_TOL`` of its
+   largest |x|.  (d) 30 train steps of 8 x 64 curated tokens through
+   ``make_train_step``: the last loss below the first, every gradient
+   finite; step median/p99, kernels, the bound, the peak.  (e) On one
+   pooled decode step's inputs and one training batch's, each mLSTM and
+   sLSTM block's bf16 output within ``XLSTM_LAYER_TOL`` of its fp32 upcast
+   on the same input, and within ``XLSTM_TRAINED_TOL`` on a training batch
+   after (d)'s steps.  Path 11 runs no kernel but the sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -2924,7 +2950,9 @@ def phase_lm(docs, card):
 # --------------------------------------------------------------------- #
 # the LM training slice (path 9)
 # --------------------------------------------------------------------- #
-TRAIN_STEPS = 200  # examples/torch_semi_supervised_lm.py's default
+# examples/torch_semi_supervised_lm.py's default is 200 steps; path 9 takes
+# 30, so that the script with path 11 stays well inside its time limit
+TRAIN_STEPS = 30
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
 # The bf16 step's gradients against an fp32 autograd of the same weights, per
 # leaf ||g_bf16 - g_fp32|| / ||g_fp32||, on the card with TF32 off: 0.0423
@@ -3359,6 +3387,7 @@ MOE_ARCH = "granite-moe-1b-a400m"  # full published config (configs/granite_moe_
 VLM_ARCH = "qwen2-vl-72b"  # every width of configs/qwen2_vl_72b.py, cut to VLM_LAYERS layers
 VLM_LAYERS = 4  # its 80 layers are 145 GB of bf16 weights; 4 keep every width in 12 GB
 FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 16, 8, 32, 16
+MOE_REQUESTS = 8  # path 10 (b) serves 8 of them (one pool load), path 11 (b) all 16
 FAM_STEPS = 30  # (c): train steps of TRAIN_BATCH x TRAIN_SEQ curated tokens
 VLM_BATCH, VLM_SEQ = 2, 256  # (d): 64 patch embeddings and 192 text tokens a row
 # The MoE block in bf16 against its fp32 upcast on the same bf16 input: both
@@ -3422,10 +3451,11 @@ def check_moe_layers(model, xs, what, card):
     return dict(worst=worst, dropped=dropped, choices=choices, dropped_per_layer=per_layer)
 
 
-def phase_family_curation(card):
-    """Path 10 (a): ``examples/torch_semi_supervised_lm.py``'s curation on
-    the card (3 waves of 400 64-token documents over granite-moe's
-    vocabulary), every sweep's result held to the plain version bitwise."""
+def phase_family_curation(card, vocab=None, path="path 10"):
+    """Path 10 (a) and path 11 (a): ``examples/torch_semi_supervised_lm.py``'s
+    curation on the card (3 waves of 400 64-token documents over ``vocab``,
+    granite-moe's by default), every sweep's result held to the plain
+    version bitwise."""
     ex = load_example("torch_semi_supervised_lm")
     kept = []
 
@@ -3437,7 +3467,7 @@ def phase_family_curation(card):
     ops_module.ell_propagate_step = sweep_kept
     t0 = time.perf_counter()
     try:
-        cur = ex.curate(np.random.default_rng(0), get_config(MOE_ARCH).vocab,
+        cur = ex.curate(np.random.default_rng(0), vocab or get_config(MOE_ARCH).vocab,
                         torch.device("cuda"))
     finally:
         ops_module.ell_propagate_step = ell_propagate_step
@@ -3447,17 +3477,17 @@ def phase_family_curation(card):
     for a, kw, (f, changed) in kept:
         want_f, want_ch = ell_propagate_ref(*a, **kw)
         require(torch.equal(f.view(torch.int32), want_f.view(torch.int32))
-                and torch.equal(changed, want_ch), "path 10: a sweep != its plain version")
+                and torch.equal(changed, want_ch), f"{path}: a sweep != its plain version")
         err = max(err, float((f - want_f).abs().max()) if f.numel() else 0.0)
     print(f"   [{card}] (a) curation {curate_s:.1f} s: {cur['sweeps']} sweeps, launches "
           f"{launches}; every sweep == its plain version bitwise; accuracy "
           f"{cur['quality']:.4f}, purity {cur['purity']:.4f}, {len(cur['curated'])} documents")
     require(launches["ell"] == cur["sweeps"] == len(kept) > 0 and
             all(n == 0 for key, n in launches.items() if key != "ell"),
-            f"path 10: launches {launches} for {cur['sweeps']} sweeps")
+            f"{path}: launches {launches} for {cur['sweeps']} sweeps")
     require(cur["quality"] > 0.9 and cur["purity"] > 0.9,
-            f"path 10: accuracy {cur['quality']}, purity {cur['purity']}")
-    require(len(cur["curated"]) >= FAM_REQUESTS, f"path 10: {len(cur['curated'])} documents")
+            f"{path}: accuracy {cur['quality']}, purity {cur['purity']}")
+    require(len(cur["curated"]) >= FAM_REQUESTS, f"{path}: {len(cur['curated'])} documents")
     return dict(sweeps=cur["sweeps"], curated=cur["curated"], accuracy=cur["quality"],
                 purity=cur["purity"], curate_s=curate_s, sweep_err=err)
 
@@ -3514,7 +3544,7 @@ def fp32_gaps(ref, reqs, rec, prefix=None):
         want = ref(toks, *(prefix or ()))[0][len(r.prompt) - 1:]
         got = torch.stack(rec["rows"][r.uid])
         require(got.shape == want.shape and torch.isfinite(got).all(),
-                f"path 10: request {r.uid}'s logits {tuple(got.shape)} vs {tuple(want.shape)}")
+                f"request {r.uid}'s logits {tuple(got.shape)} vs {tuple(want.shape)}")
         e, margin, ref_tok = lm_gap(got, want)
         mask = margin > 2 * LM_TOL
         err = max(err, e)
@@ -3526,7 +3556,7 @@ def fp32_gaps(ref, reqs, rec, prefix=None):
 
 def phase_moe_serve(curated, card):
     """Path 10 (b): granite-moe-1b-a400m at its full published config
-    behind ``ServeEngine(max_batch=8, s_max=256)``, 16 requests of 32
+    behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 32
     curated tokens and 16 new tokens; every MoE layer held to its fp32
     upcast on one pooled decode step; the whole model's gap to the fp32
     forward reported."""
@@ -3550,12 +3580,12 @@ def phase_moe_serve(curated, card):
           f"{cfg.moe.d_expert}, vocab {cfg.vocab}: {n_params:,} parameters "
           f"({cfg.num_active_params():,} active a token), {weight_bytes:,} B of weights (fp32 "
           f"routers), {expert_bytes:,} B of them experts, drawn in {build_s:.1f} s")
-    reqs = fixed_requests(curated, FAM_REQUESTS, seed=1)
+    reqs = fixed_requests(curated, MOE_REQUESTS, seed=1)
     engine, rec = serve_recorded(model, reqs)
     cache_bytes = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
-    print(f"   [{card}] (b) {FAM_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
+    print(f"   [{card}] (b) {MOE_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
           f"each, in {rec['run_s']:.1f} s: {engine.steps} pooled steps, {engine.prefill_calls} "
           f"prefill calls; a pooled decode step median {rec['p50']:.2f} ms, p99 "
           f"{rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at {LM_POOL} slots "
@@ -3767,6 +3797,392 @@ def phase_families(card):
     return out
 
 
+XLSTM_ARCH = "xlstm-350m"  # full published config (configs/xlstm_350m.py), nothing cut
+XLSTM_PREFILL_B, XLSTM_PREFILL_S = 2, 256  # (c): a prefill against the decode chain
+# Tolerances, each about twice the gap it bounds as measured on the H100
+# (PERF.md §6, PR 22).  A bf16 xLSTM 24 layers deep lies far from its fp32
+# self, in the reference too (its own bf16 decode logits 0.39-1.25 from its
+# fp32 ones at depth 24 on the CPU, its bf16 prefill 0.85 from its decode
+# chain: tools/xlstm_depth_gap.py; ROADMAP queue 3), so the whole-model
+# holds are loose and the per-block hold (e) is the tight one.  (b) The
+# served bf16 logits against the fp32 twin driven in lockstep (the same
+# calls, tokens and slot adoptions, its own cache), max |diff| over every
+# generated position: 1.504 measured.  (c) Prefill's last logits against the decode chain's:
+# 0.703; its final states against the chain's, relative to each leaf's
+# largest |x|: 0.157 (the bf16 conv tail).  (e) Each block's bf16 output
+# against its fp32 upcast on the same input, relative to the fp32 output's
+# largest |y|: 0.0212 (mLSTM, decode input).  After (d)'s 30 steps at lr
+# 3e-3 the gates' pre-activations have grown, and the exponential input
+# gate turns the bf16 rounding of a block's input into a larger change of
+# its output: 0.1325 measured (an mLSTM on a training batch), held within
+# XLSTM_TRAINED_TOL.
+XLSTM_TOL = 3.0
+XLSTM_CHAIN_TOL = 1.5
+XLSTM_STATE_TOL = 0.3
+XLSTM_LAYER_TOL = 2.0 ** -4
+XLSTM_TRAINED_TOL = 0.3
+
+
+def xlstm_inputs(model):
+    """Forward hooks that keep each mLSTM and sLSTM block's first input
+    (``u`` and the state it started from) while ``rec["on"]`` is set;
+    returns (rec, remove)."""
+    rec = dict(on=False, x={})
+    blocks = [(f"macros.{i}.mlstm.{j}", blk) for i, m in enumerate(model.macros)
+              for j, blk in enumerate(m.mlstm)]
+    blocks += [(f"macros.{i}.slstm", m.slstm) for i, m in enumerate(model.macros)]
+
+    def hook(name):
+        def keep(_module, args, _out):
+            if rec["on"] and name not in rec["x"]:
+                state = args[1] if len(args) > 1 else None
+                rec["x"][name] = (args[0].detach().clone(), state)
+        return keep
+
+    handles = [blk.register_forward_hook(hook(name)) for name, blk in blocks]
+    return rec, lambda: [h.remove() for h in handles]
+
+
+def _upcast_state(state):
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        return state.float()
+    return type(state)(_upcast_state(x) for x in state)
+
+
+def check_xlstm_blocks(model, xs, what, card, tol=None):
+    """Each mLSTM and sLSTM block of ``model`` on its kept bf16 input, against
+    an fp32 upcast of the same block on the same input (and state): the
+    outputs within ``tol`` (``XLSTM_LAYER_TOL``) of the fp32 output's
+    largest |y|.  Returns the worst ratio of each kind."""
+    tol = tol or XLSTM_LAYER_TOL
+    n_blocks = model.n_macro * (model.m_per_macro + 1)
+    require(len(xs) == n_blocks, f"path 11 {what}: {len(xs)} of {n_blocks} block inputs kept")
+    modules = dict(model.named_modules())
+    worst = {"mlstm": 0.0, "slstm": 0.0}
+    with torch.no_grad():
+        for name, (u, state) in sorted(xs.items()):
+            block = modules[name]
+            twin = copy.deepcopy(block).float()
+            y16, _ = block(u, state)
+            y32, _ = twin(u.float(), _upcast_state(state))
+            ratio = float((y16.float() - y32).abs().max() / y32.abs().max())
+            require(bool(torch.isfinite(y16).all()), f"path 11 {what}: {name} is not finite")
+            require(ratio <= tol, f"path 11 {what}: {name}'s bf16 output is {ratio} "
+                    f"of its scale from fp32, tolerance {tol}")
+            kind = "slstm" if name.endswith("slstm") else "mlstm"
+            worst[kind] = max(worst[kind], ratio)
+            del twin
+    print(f"   [{card}] (e) {what}: every block's bf16 output vs its fp32 upcast on its kept "
+          f"input ({tuple(next(iter(xs.values()))[0].shape)}): mLSTM max|dy| {worst['mlstm']:.5f}, "
+          f"sLSTM {worst['slstm']:.5f} of the block's max|y| (tolerance {tol:.5f})")
+    return worst
+
+
+def block_check_on_batch(model, toks, what, card, tol=None):
+    """``check_xlstm_blocks`` on the blocks' inputs of one forward of
+    ``toks``."""
+    caps, remove = xlstm_inputs(model)
+    caps["on"] = True
+    try:
+        with torch.no_grad():
+            model(toks)
+    finally:
+        remove()
+    return check_xlstm_blocks(model, caps["x"], what, card, tol)
+
+
+def serve_lockstep(model, twin, reqs):
+    """``reqs`` through ``ServeEngine(model, 8, 256)`` and copies of them
+    through ``ServeEngine(twin, 8, 256)`` in lockstep: every submit and step
+    of the first is followed by the same call on the second, whose requests
+    then take the first's tokens, so both make the same calls on the same
+    tokens and adopt the same slots.  Only the first engine's calls are
+    timed.  Every mLSTM and sLSTM block's input is kept on the first pooled
+    step with every slot busy."""
+    engine = ServeEngine(model, max_batch=LM_POOL, s_max=LM_S_MAX)
+    shadow = ServeEngine(twin, max_batch=LM_POOL, s_max=LM_S_MAX)
+    rec, rec32 = record_engine(engine), record_engine(shadow)
+    caps, remove = xlstm_inputs(model)
+    twins = {r.uid: Request(uid=r.uid, prompt=r.prompt.copy(), max_new=r.max_new) for r in reqs}
+
+    def follow():
+        for r in reqs:
+            if r.out:
+                twins[r.uid].out[len(r.out) - 1:] = r.out[-1:]
+
+    pending = list(reqs)
+    t0 = time.perf_counter()
+    try:
+        while pending or any(s is not None for s in engine.slots):
+            while pending and engine._free_slot() is not None:
+                req = pending.pop(0)
+                engine.submit(req)
+                shadow.submit(twins[req.uid])
+                follow()
+            caps["on"] = all(s is not None for s in engine.slots) and not caps["x"]
+            engine.step()
+            caps["on"] = False
+            shadow.step()
+            follow()
+    finally:
+        remove()
+    rec["run_s"] = time.perf_counter() - t0
+    require(all(r.done and len(r.out) == r.max_new for r in reqs) and
+            [s is None for s in shadow.slots] == [True] * LM_POOL and
+            shadow.decode_calls == engine.decode_calls,
+            "path 11: the engine and its fp32 twin did not finish alike")
+    steps, full = np.array(rec["step_ms"]), np.array(rec["active"]) == LM_POOL
+    rec.update(p50=float(np.median(steps)), p99=float(np.percentile(steps, 99)),
+               tok_s=float(LM_POOL * full.sum() / (steps[full].sum() / 1e3)),
+               full_steps=int(full.sum()), kept=caps["x"])
+    gap = max(float((torch.stack(rec["rows"][r.uid]) - torch.stack(rec32["rows"][r.uid]))
+                    .abs().max()) for r in reqs)
+    return engine, rec, gap
+
+
+def xlstm_decode_bound_ms(model, engine):
+    """The least time (ms) of one pooled decode step: every bf16 weight but
+    the embedding read once (the lm_head included), 8 embedding rows, and
+    the recurrent state read and written once (the fp32 S̃, ñ, m of the 21
+    mLSTM layers, the bf16 conv tails, the sLSTMs' h, c, n, m), at the HBM
+    rate.  Returns (ms, bytes, state bytes)."""
+    params = dict(model.named_parameters())
+    weights = sum(p.numel() * p.element_size() for n, p in params.items() if n != "embed")
+    state = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
+    read = weights + LM_POOL * model.cfg.d_model * 2 + 2 * state
+    return read / HBM_BYTES_PER_S * 1e3, read, state
+
+
+def xlstm_train_bound_ms(model, n_params):
+    """The least time (ms) of one train step of ``TRAIN_BATCH × TRAIN_SEQ``
+    tokens: the bf16 products (6 × the parameters outside the embedding
+    gather × tokens) at the bf16 rate; the mLSTM core's fp32 products a
+    layer (the chunk's q·kᵀ and scores·v, the carry-in q·S̃ and the state
+    update kᵀ·v, 2·B·H·(2·S²·hd + 2·S·hd²) forward, × 3 with the backward)
+    and the sLSTM's recurrent product (2·B·S·d·4·hd, × 3) at the fp32 rate;
+    the optimizer's 28 B a parameter at the HBM rate.  Returns (total,
+    products, cores, optimizer)."""
+    cfg = model.cfg
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    d_in = int(cfg.d_model * cfg.xlstm.proj_factor)
+    hd_i, hd = d_in // cfg.n_heads, cfg.d_model // cfg.n_heads
+    bf16_ops = 6 * (n_params - cfg.vocab * cfg.d_model) * b * s
+    mlstm = 3 * 2 * b * cfg.n_heads * (2 * s * s * hd_i + 2 * s * hd_i * hd_i)
+    slstm = 3 * 2 * b * s * cfg.d_model * 4 * hd
+    core_ops = model.n_macro * (model.m_per_macro * mlstm + slstm)
+    parts = (bf16_ops / BF16_FLOPS * 1e3, core_ops / F32_FLOPS * 1e3,
+             28 * n_params / HBM_BYTES_PER_S * 1e3)
+    return (sum(parts),) + parts
+
+
+def phase_xlstm_serve(curated, card):
+    """Path 11 (b), (e) on a decode input: xlstm-350m at its full published
+    config behind ``ServeEngine(max_batch=8, s_max=256)``, 16 requests of
+    32 curated tokens and 16 new tokens, against an fp32 twin in lockstep;
+    the gap to a fresh fp32 forward of each request's own tokens reported."""
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    fp32_leaves = sorted({n.split(".")[-1] for n, p in params.items() if p.dtype == torch.float32})
+    se = cfg.xlstm.slstm_every
+    require(type(model).__name__ == "XLSTMModel" and fp32_leaves == ["b", "b_if", "wif"]
+            and (model.n_macro, model.m_per_macro) == (cfg.n_layers // se, se - 1),
+            f"path 11: {type(model).__name__}, macros {model.n_macro} x {model.m_per_macro}, "
+            f"fp32 leaves {fp32_leaves}")
+    print(f"   {cfg.name}: {cfg.n_layers} layers ({model.n_macro} macros of {model.m_per_macro} "
+          f"mLSTM + 1 sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads, proj_factor "
+          f"{cfg.xlstm.proj_factor}, conv_width {cfg.xlstm.conv_width}, chunk {cfg.xlstm.chunk}, "
+          f"vocab {cfg.vocab}: {n_params:,} parameters (ArchConfig.num_params estimates "
+          f"{cfg.num_params():,}), {weight_bytes:,} B of weights (fp32 gates), drawn in "
+          f"{build_s:.1f} s")
+    twin = lm_fp32_reference(model)
+    reqs = fixed_requests(curated, FAM_REQUESTS, seed=1)
+    engine, rec, gap = serve_lockstep(model, twin, reqs)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
+    print(f"   [{card}] (b) {FAM_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
+          f"each, in {rec['run_s']:.1f} s with the fp32 twin beside it: {engine.steps} pooled "
+          f"steps, {engine.prefill_calls} prefill calls; a pooled decode step median "
+          f"{rec['p50']:.2f} ms, p99 {rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at "
+          f"{LM_POOL} slots ({rec['full_steps']} full steps); prefill {prefill_ms:.2f} ms a "
+          f"prompt token; logits vs the fp32 twin in lockstep max|diff| {gap:.4f} (tolerance "
+          f"{XLSTM_TOL}); max_memory_allocated {peak:,} B (the twin's included)")
+    require(gap <= XLSTM_TOL, f"path 11: served logits {gap} from the fp32 twin")
+    step_device_ms, kernels = decode_device_time(model, engine)
+    bound_ms, read, state = xlstm_decode_bound_ms(model, engine)
+    print(f"   [{card}] one pooled decode step on the card (torch.profiler, 3 steps): "
+          f"{step_device_ms:.3f} ms of kernels ({kernels:.0f} launches), busy "
+          f"{step_device_ms / rec['p50']:.1%} of the median step; bound {bound_ms:.3f} ms (bytes: "
+          f"every weight but the embedding read once, 8 embedding rows, the recurrent state "
+          f"({state:,} B) read and written once: {read:,} B)")
+    layers = check_xlstm_blocks(model, rec["kept"], "a pooled decode step", card)
+    err, wide, flips, total = fp32_gaps(twin, reqs, rec)
+    print(f"   [{card}] reported, not held: logits vs a fresh fp32 forward of each request's own "
+          f"tokens (a reused slot starts from its predecessor's state, ROADMAP queue 3) "
+          f"max|diff| {err:.4f}; greedy tokens equal to its argmax at {wide - flips} of the "
+          f"{wide} of {total} positions whose top-2 margin exceeds {2 * LM_TOL}")
+    del twin
+    return dict(model=model, xlstm_params=n_params, xlstm_step_ms_p50=rec["p50"],
+                xlstm_step_ms_p99=rec["p99"], xlstm_tokens_per_s=rec["tok_s"],
+                xlstm_prefill_ms_per_token=prefill_ms, xlstm_step_device_ms=step_device_ms,
+                xlstm_step_launches=kernels, xlstm_step_bound_ms=bound_ms,
+                xlstm_serve_peak_bytes=peak, xlstm_twin_gap=gap, xlstm_decode_layers=layers,
+                xlstm_fresh_gap=err, xlstm_greedy=(wide - flips, wide), xlstm_serve_s=rec["run_s"])
+
+
+def phase_xlstm_prefill(model, curated, card):
+    """Path 11 (c): ``prefill`` of 2 x 256 curated tokens against a
+    token-by-token ``decode_step`` chain over the same tokens from a fresh
+    cache: the last logits within ``XLSTM_CHAIN_TOL``, every state leaf
+    within ``XLSTM_STATE_TOL`` of its largest |x|."""
+    rng = np.random.default_rng(3)
+    per_row = XLSTM_PREFILL_S // curated.shape[1]
+    docs = rng.choice(len(curated), XLSTM_PREFILL_B * per_row, replace=False)
+    toks = torch.as_tensor(curated[docs].reshape(XLSTM_PREFILL_B, XLSTM_PREFILL_S),
+                           dtype=torch.int64, device=model.device)
+    with torch.no_grad():
+        model.prefill({"tokens": toks})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        chain = model.init_cache(XLSTM_PREFILL_B, 0)
+        t0 = time.perf_counter()
+        for t in range(XLSTM_PREFILL_S):
+            last, chain = model.decode_step(chain, {"tokens": toks[:, t:t + 1],
+                                                    "pos": torch.tensor(t, device=model.device)})
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t0) * 1e3 / XLSTM_PREFILL_S
+    err = float((logits.float() - last.float()).abs().max())
+    states = {key: float((cache[key].float() - chain[key].float()).abs().max()
+                         / chain[key].float().abs().max().clamp(min=1e-30)) for key in cache}
+    worst_key = max(states, key=states.get)
+    print(f"   [{card}] (c) prefill of {XLSTM_PREFILL_B} x {XLSTM_PREFILL_S} curated tokens "
+          f"{prefill_ms:.2f} ms; the same tokens through {XLSTM_PREFILL_S} decode steps "
+          f"{chain_ms:.2f} ms a step; last logits max|diff| {err:.4f} (tolerance "
+          f"{XLSTM_CHAIN_TOL}); final states within {states[worst_key]:.5f} of their largest "
+          f"|x| ({worst_key}; tolerance {XLSTM_STATE_TOL})")
+    require(bool(torch.isfinite(logits.float()).all()) and err <= XLSTM_CHAIN_TOL,
+            f"path 11: prefill's logits {err} from the decode chain's")
+    require(max(states.values()) <= XLSTM_STATE_TOL,
+            f"path 11: prefill's states {states} from the decode chain's")
+    return dict(xlstm_prefill_ms=prefill_ms, xlstm_chain_ms=chain_ms, xlstm_chain_gap=err,
+                xlstm_chain_states=states)
+
+
+def phase_xlstm_train(model, curated, card):
+    """Path 11 (d), (e) on a training batch: the served model trains
+    ``FAM_STEPS`` steps of 8 x 64 curated tokens through ``make_train_step``
+    (``remat="full"``, lr 3e-3, warmup 10): the loss falls, every gradient
+    is finite; step median/p99, kernels, the bound, the peak."""
+    cfg = model.cfg
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=FAM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt_cfg)
+    state = optim_module.init_state(dict(model.named_parameters()))
+    rng = np.random.default_rng(1)
+    batches = [torch.as_tensor(curated[rng.integers(0, len(curated), size=TRAIN_BATCH)],
+                               dtype=torch.int32, device=model.device) for _ in range(FAM_STEPS)]
+    served = block_check_on_batch(model, batches[0], "a training batch, the served weights",
+                                  card)
+    update, finite = optim_module.update, []
+
+    def checked(cfg_, st, grads, dtypes):
+        finite.append(torch.stack([torch.isfinite(g).all() for g in grads.values()]))
+        if len(finite) == 1:
+            finite.append(list(grads))  # the leaves' names, in the order of the flags
+        return update(cfg_, st, grads, dtypes)
+
+    losses, ms = [], []
+    optim_module.update = checked
+    t_all = time.perf_counter()
+    try:
+        for toks in batches:
+            batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    finally:
+        optim_module.update = update
+    train_s = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    losses_f = [float(x) for x in losses]
+    names = finite.pop(1)
+    flags = torch.stack(finite).cpu().numpy()  # (steps, leaves)
+    all_finite = bool(flags.all())
+    if not all_finite:
+        first = int(np.flatnonzero(~flags.all(axis=1))[0])
+        print(f"   [{card}] (d) step {first}'s gradients are not finite in "
+              f"{[n for n, ok in zip(names, flags[first]) if not ok][:8]}; losses {losses_f}")
+    steps = np.array(ms[1:])  # the first step allocates the state
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (np.median(steps) / 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_kernel_ms, step_launches, state = step_device_time(model, state, batch, opt_cfg)
+    bound = xlstm_train_bound_ms(model, n_params)
+    print(f"   [{card}] (d) {cfg.name} at full width, remat {cfg.remat!r}: {FAM_STEPS} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} curated tokens in {train_s:.1f} s; loss {losses_f[0]:.4f} "
+          f"-> {losses_f[-1]:.4f}; every gradient finite: {all_finite}")
+    print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; {tok_s:.0f} tokens/s; first step {ms[0]:.1f} ms; "
+          f"one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms of kernels "
+          f"({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}; bound "
+          f"{bound[0]:.2f} ms (bf16 products {bound[1]:.2f}, fp32 mLSTM and sLSTM cores "
+          f"{bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated {peak:,} B")
+    require(np.isfinite(losses_f).all() and losses_f[-1] < losses_f[0],
+            f"path 11: loss {losses_f[0]} -> {losses_f[-1]}")
+    require(all_finite, "path 11: a gradient is not finite")
+    trained = block_check_on_batch(model, batch["tokens"], f"a training batch after "
+                                   f"{FAM_STEPS} steps", card, XLSTM_TRAINED_TOL)
+    del state
+    return dict(xlstm_train_losses=losses_f, xlstm_train_s=train_s,
+                xlstm_train_step_ms_p50=float(np.median(steps)),
+                xlstm_train_step_ms_p99=float(np.percentile(steps, 99)),
+                xlstm_train_tokens_per_s=float(tok_s), xlstm_train_kernel_ms=step_kernel_ms,
+                xlstm_train_launches=step_launches, xlstm_train_bound_ms=bound,
+                xlstm_train_peak_bytes=peak, xlstm_train_layers=served,
+                xlstm_trained_layers=trained)
+
+
+def phase_xlstm(card):
+    """Path 11: curation on the card over xlstm-350m's vocabulary, then
+    xlstm-350m served, prefilled against its decode chain and trained at
+    full width.  Every wrapper's count is set to 0 before (a) and read
+    after (d)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # path 10's models are gone
+    reset_launches()
+    out = phase_family_curation(card, get_config(XLSTM_ARCH).vocab, "path 11")
+    times = {}
+    for part, run in (("b", lambda: phase_xlstm_serve(out["curated"], card)),
+                      ("c", lambda: phase_xlstm_prefill(out["model"], out["curated"], card)),
+                      ("d", lambda: phase_xlstm_train(out.pop("model"), out["curated"], card))):
+        t0 = time.perf_counter()
+        out.update(run())
+        gc.collect()
+        torch.cuda.empty_cache()
+        times[part] = time.perf_counter() - t0
+        print(f"   ({part}) {times[part]:.1f} s", flush=True)
+    out["part_s"] = times
+    out["launches"] = read_launches()
+    print(f"   path 11 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"]["ell"] == out["sweeps"] and
+            all(n == 0 for key, n in out["launches"].items() if key != "ell"),
+            f"path 11: launches {out['launches']} for {out['sweeps']} sweeps")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -3828,13 +4244,15 @@ def main(argv=None) -> int:
     with Phase(f"path 10: {MOE_ARCH} serves and trains at full width, {VLM_ARCH} at "
                f"{VLM_LAYERS} layers"):
         out10 = phase_families(card)
+    with Phase(f"path 11: {XLSTM_ARCH} serves, prefills and trains at full width"):
+        out11 = phase_xlstm(card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
                  path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"],
-                 path10=out10["launches"])
+                 path10=out10["launches"], path11=out11["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

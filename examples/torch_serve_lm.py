@@ -6,7 +6,9 @@
 The port of ``examples/serve_lm.py``: serves a (reduced-config) model with
 the slot-pool engine; requests with different prompt lengths and budgets
 stream through a fixed decode pool, each slot tracking its own cache
-position.  The model's bf16 weights are drawn from a seeded generator.
+position (``--arch`` takes any ported family: a dense, moe or vlm
+transformer with a KV cache, or xlstm-350m, whose cache holds recurrent
+states).  The model's bf16 weights are drawn from a seeded generator.
 """
 
 import argparse

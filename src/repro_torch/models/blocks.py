@@ -1,14 +1,16 @@
-"""Layer blocks: GQA attention, the dense MLP (SwiGLU or GELU) and the
-token-choice MoE.
+"""Layer blocks: GQA attention, the dense MLP (SwiGLU or GELU), the
+token-choice MoE and xLSTM's mLSTM and sLSTM.
 
-Counterpart of the attention, MLP and MoE part of ``repro.models.blocks``.
+Counterpart of the attention, MLP, MoE and xLSTM part of
+``repro.models.blocks``.
 The reference's ``<block>_init`` / ``<block>_apply`` pairs over dicts of
 arrays become ``nn.Module``s holding ``nn.Parameter``s under the reference's
 leaf names (``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w1``,
 ``w3``, ``w2``, ``router`` …, weights laid out ``(in, out)`` as there), each
 with a ``forward`` for a whole sequence and, for attention, a ``decode``
-against a KV cache.  The Mamba2 and xLSTM blocks are a later slice
-(``ROADMAP.md`` queue 1, item 10).
+against a KV cache, or, for the recurrent blocks, a ``forward`` that takes
+and returns their state.  The Mamba2 block is a later slice (``ROADMAP.md``
+queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.models.common import (
     rope,
     swiglu,
 )
+from repro_torch.models.ssd import NEG_INF, mlstm_chunked, mlstm_decode_step
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -272,3 +275,153 @@ def _expert_mm(a, w):
     for every group)."""
     dt = torch.promote_types(a.dtype, w.dtype)
     return torch.einsum("geci,eio->geco", a.to(dt), w.to(dt))
+
+
+# --------------------------------------------------------------------- #
+# xLSTM: the causal conv, mLSTM and sLSTM
+# --------------------------------------------------------------------- #
+def _causal_conv(x, w, b, hist=None):
+    """Depthwise causal conv; x ``(B, S, C)``, w ``(W, C)``; ``hist``
+    ``(B, W-1, C)`` carries the previous tokens' tail across prefill and
+    decode (zeros when None).  The taps are summed in ``x``'s dtype from 0,
+    as the reference's Python ``sum``.  Returns (y ``(B, S, C)``, the new
+    tail ``(B, W-1, C)``)."""
+    wsz, s = w.shape[0], x.shape[1]
+    if hist is None:
+        ext = F.pad(x, (0, 0, wsz - 1, 0))
+    else:
+        ext = torch.cat([hist.to(x.dtype), x], dim=1)
+    out = sum(ext[:, i:i + s, :] * w[i][None, None, :] for i in range(wsz))
+    return out + b, ext[:, -(wsz - 1):, :]
+
+
+class MLSTM(nn.Module):
+    """xLSTM's matrix-memory block (``mlstm_init``/``mlstm_apply``/
+    ``mlstm_decode``): up-projections ``wx_up`` and ``wz_up``, a causal conv
+    (``conv_w``, ``conv_b``) before q and k, per-head exponential input and
+    sigmoid forget gates from the fp32 ``wif``/``b_if``, the chunked core,
+    a ``norm`` and the ``silu(z)`` gate, then ``down_proj``.  Its state is
+    (the conv tail, bf16; ``(S̃, ñ, m)``, fp32)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        d_in, h, _, cw = self.dims()
+        self.wx_up = _param(dense_init(gen, (d, d_in)))
+        self.wz_up = _param(dense_init(gen, (d, d_in)))
+        self.conv_w = _param(dense_init(gen, (cw, d_in), scale=1.0 / math.sqrt(cw)))
+        self.conv_b = _zeros(d_in, gen)
+        self.wq = _param(dense_init(gen, (d_in, d_in)))
+        self.wk = _param(dense_init(gen, (d_in, d_in)))
+        self.wv = _param(dense_init(gen, (d_in, d_in)))
+        self.wif = _param(dense_init(gen, (d_in, 2 * h), dtype=torch.float32))
+        self.b_if = _param(torch.cat([torch.zeros(h, device=gen.device),
+                                      torch.full((h,), 3.0, device=gen.device)]))
+        self.norm = _ones(d_in, gen)
+        self.down_proj = _param(dense_init(gen, (d_in, d)))
+
+    def dims(self):
+        """(d_in, heads, head dim, conv width): ``_mlstm_dims``."""
+        cfg = self.cfg
+        d_in = int(cfg.d_model * cfg.xlstm.proj_factor)
+        return d_in, cfg.n_heads, d_in // cfg.n_heads, cfg.xlstm.conv_width
+
+    def _gates(self, xc, b, s, h):
+        """(li, lf) ``(B, S, H)``: fp32 log input and log forget gates."""
+        gif = mm(xc.float(), self.wif) + self.b_if
+        return gif[..., :h].reshape(b, s, h), F.logsigmoid(gif[..., h:]).reshape(b, s, h)
+
+    def _out(self, y, z, u):
+        y = rms_norm(y, self.norm, self.cfg.norm_eps) * F.silu(z)
+        return mm(y, self.down_proj).to(u.dtype)
+
+    def forward(self, u, state=None):
+        """The whole sequence ``u`` ``(B, S, D)`` through the chunked core
+        from ``state`` (None: zeros); returns (y, the new state)."""
+        b, s, _ = u.shape
+        d_in, h, hd, _ = self.dims()
+        x_in, z = mm(u, self.wx_up), mm(u, self.wz_up)
+        conv_out, conv_tail = _causal_conv(x_in, self.conv_w, self.conv_b,
+                                           hist=None if state is None else state[0])
+        xc = F.silu(conv_out)
+        q = mm(xc, self.wq).reshape(b, s, h, hd)
+        k = mm(xc, self.wk).reshape(b, s, h, hd)
+        v = mm(x_in, self.wv).reshape(b, s, h, hd)
+        li, lf = self._gates(xc, b, s, h)
+        y, mstate = mlstm_chunked(lf, li, q, k, v, state=None if state is None else state[1],
+                                  chunk=self.cfg.xlstm.chunk)
+        return self._out(y.reshape(b, s, d_in), z, u), (conv_tail.to(torch.bfloat16), mstate)
+
+    def decode(self, u, state):
+        """One token ``u`` ``(B, 1, D)`` through the step-by-step recurrence
+        (``mlstm_decode``); returns (y, the new state)."""
+        b = u.shape[0]
+        d_in, h, hd, _ = self.dims()
+        conv_tail, mstate = state
+        x_in, z = mm(u, self.wx_up), mm(u, self.wz_up)
+        window = torch.cat([conv_tail.to(x_in.dtype), x_in], dim=1)  # (B, cw, C)
+        xc = F.silu(torch.einsum("bwc,wc->bc", window, self.conv_w) + self.conv_b)
+        q = mm(xc, self.wq).reshape(b, h, hd)
+        k = mm(xc, self.wk).reshape(b, h, hd)
+        v = mm(x_in[:, 0], self.wv).reshape(b, h, hd)
+        li, lf = self._gates(xc[:, None, :], b, 1, h)
+        y, mstate = mlstm_decode_step(lf[:, 0], li[:, 0], q, k, v, mstate)
+        return self._out(y.reshape(b, 1, d_in), z, u), (window[:, 1:].to(torch.bfloat16), mstate)
+
+
+class SLSTM(nn.Module):
+    """xLSTM's scalar-memory block (``slstm_init``/``slstm_apply``): the
+    input projection ``w_in`` plus the fp32 bias ``b`` (rounded to the
+    input's dtype before the add), a per-head recurrent ``r``, a sequential
+    exponential-gated cell in fp32, ``norm`` and a GELU feed-forward
+    (``w_ff1``, ``w_ff2``).  Its state is (h, c, n ``(B, H, hd)``, m
+    ``(B, H)``), fp32.  The reference remats each 64-step time chunk of its
+    scan, which only saves memory; here the steps are a Python loop."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        hd, ff = d // h, int(d * 4 / 3)
+        self.w_in = _param(dense_init(gen, (d, 4 * d)))
+        self.r = _param(dense_init(gen, (h, hd, 4 * hd), scale=1.0 / math.sqrt(hd)))
+        self.b = _param(torch.zeros(4 * d, device=gen.device))
+        self.norm = _ones(d, gen)
+        self.w_ff1 = _param(dense_init(gen, (d, ff)))
+        self.w_ff2 = _param(dense_init(gen, (ff, d)))
+
+    def cell(self, wx_t, state):
+        """``_slstm_cell``: one step from ``wx_t`` ``(B, 4D)``."""
+        h_ = self.cfg.n_heads
+        hprev, c, n, m = state
+        rec = torch.einsum("bhd,hdk->bhk", hprev.float(), self.r.float())
+        gates = wx_t.float().reshape(-1, h_, self.r.shape[-1]) + rec  # (B, H, 4hd)
+        zi, ii, fi, oi = torch.chunk(gates, 4, dim=-1)
+        # per-head scalar gates
+        it, ft = ii.mean(-1), fi.mean(-1)
+        m_new = torch.maximum(ft + m, it)
+        i_g = torch.exp(it - m_new)[..., None]
+        f_g = torch.exp(ft + m - m_new)[..., None]
+        c_new = f_g * c + i_g * torch.tanh(zi)
+        n_new = f_g * n + i_g
+        h_new = torch.sigmoid(oi) * c_new / torch.clamp(n_new, min=1e-6)
+        return h_new, c_new, n_new, m_new
+
+    def forward(self, u, state=None):
+        """The sequence ``u`` ``(B, S, D)`` step by step from ``state``
+        (None: zeros and m = ``NEG_INF``); returns (y, the new state).  Decoding
+        is the same call at S = 1 (``slstm_decode``)."""
+        b, s, d = u.shape
+        h_ = self.cfg.n_heads
+        wx = mm(u, self.w_in) + self.b.to(u.dtype)  # (B, S, 4D)
+        if state is None:
+            z = torch.zeros((b, h_, d // h_), dtype=torch.float32, device=u.device)
+            state = (z, z, z, torch.full((b, h_), NEG_INF, dtype=torch.float32, device=u.device))
+        hs = []
+        for t in range(s):
+            state = self.cell(wx[:, t], state)
+            hs.append(state[0])
+        y = torch.stack(hs, dim=1).reshape(b, s, d).to(u.dtype)
+        y = rms_norm(y, self.norm, self.cfg.norm_eps)
+        return mm(F.gelu(mm(y, self.w_ff1), approximate="tanh"), self.w_ff2).to(u.dtype), state

@@ -358,11 +358,16 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16, scale=None) ->
 
 
 # the ROADMAP.md queue 1 item that ports each family not yet in the port
-NOT_PORTED = {"ssm": 10, "hybrid": 10, "audio": 10}
+NOT_PORTED = {"hybrid": 10, "audio": 10}
 
 
 def not_ported(cfg: ArchConfig) -> NotImplementedError:
-    """The error for a config whose family the port does not build yet."""
+    """The error for a config whose family the port does not build yet, or
+    (ported, as ``ssm``) that another model class builds."""
+    if cfg.family not in NOT_PORTED:
+        return NotImplementedError(
+            f"{cfg.name}: TransformerLM does not build the {cfg.family!r} family; "
+            f"models.api.build_model does")
     return NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet "
         f"(ROADMAP.md queue 1, item {NOT_PORTED[cfg.family]})")

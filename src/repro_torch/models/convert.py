@@ -2,22 +2,23 @@
 back.
 
 ``lm_params_from_jax(model, tree)`` loads the tree that the reference's
-``TransformerLM.init(key)`` returns, as numpy arrays, into a port
-``TransformerLM``: the same leaf names, the per-layer tensors sliced from
-the reference's stacked ``layers`` leaves; ``lm_params_to_tree`` stacks
-them back.  ``opt_state_from_jax``/``opt_state_to_tree`` do the same for
+``init(key)`` returns, as numpy arrays, into a port ``TransformerLM`` or
+``XLSTMModel``: the same leaf names, each index in a module parameter's
+name (``layers.<l>``; ``macros.<i>.mlstm.<j>``) indexing the next stacked
+axis of the reference's leaf; ``lm_params_to_tree`` stacks them back.
+``opt_state_from_jax``/``opt_state_to_tree`` do the same for
 ``training.optim``'s ``master``/``m``/``v``/``step``.  The trees are what
 ``checkpoint.manager`` writes in the reference's layout, so a training
-checkpoint of either package resumes in the other.  Numpy and tensors
-only: the port never imports jax or ``ml_dtypes``.
+checkpoint of either package resumes in the other.  ``cache_from_jax``/
+``cache_to_tree`` carry a recurrent model's nested cache tree across.
+Numpy and tensors only: the port never imports jax or ``ml_dtypes``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from repro_torch.models.transformer import TransformerLM
+from torch import nn
 
 
 def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
@@ -40,34 +41,48 @@ def _flatten(tree, prefix=()) -> dict[tuple[str, ...], object]:
     return out
 
 
-def _ref_key(name: str) -> tuple[tuple[str, ...], int | None]:
-    """(the reference tree's key path, the layer index or None) of a module
-    parameter name: ``layers.<l>.attn.wq`` ← ``layers/attn/wq[l]``."""
-    parts = tuple(name.split("."))
-    if parts[0] == "layers":
-        return ("layers",) + parts[2:], int(parts[1])
-    return parts, None
+def _ref_key(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """(the reference tree's key path, the indices into its stacked axes) of
+    a module parameter name: ``layers.<l>.attn.wq`` ←
+    ``layers/attn/wq[l]``, ``macros.<i>.mlstm.<j>.wq`` ←
+    ``macros/mlstm/wq[i, j]``, ``macros.<i>.mlstm_ln.<j>`` ←
+    ``macros/mlstm_ln[i, j]``."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
 
 
 def _as_tensor(leaf) -> torch.Tensor:
     return leaf if isinstance(leaf, torch.Tensor) else tensor_from_numpy(np.asarray(leaf))
 
 
-def _from_tree(model: TransformerLM, tree: dict) -> dict[str, torch.Tensor]:
+def _stack_counts(names) -> dict[tuple[str, ...], tuple[int, ...]]:
+    """Per reference key, the sizes of its stacked axes (one more than the
+    largest index at each)."""
+    counts: dict[tuple[str, ...], tuple[int, ...]] = {}
+    for name in names:
+        key, index = _ref_key(name)
+        prev = counts.get(key, (0,) * len(index))
+        counts[key] = tuple(max(a, i + 1) for a, i in zip(prev, index))
+    return counts
+
+
+def _from_tree(model: nn.Module, tree: dict) -> dict[str, torch.Tensor]:
     """The reference tree's leaves (numpy arrays or tensors) cut into one
     tensor a module parameter, by name; raises on a missing, extra or
     misshapen leaf."""
     flat = {key: _as_tensor(leaf) for key, leaf in _flatten(tree).items()}
+    counts = _stack_counts(n for n, _ in model.named_parameters())
     used, out = set(), {}
     for name, param in model.named_parameters():
         key, index = _ref_key(name)
         if key not in flat:
             raise KeyError(f"reference tree has no leaf {'/'.join(key)} for {name}")
         leaf = flat[key]
-        if index is not None:
-            if leaf.shape[0] != model.cfg.n_layers:
-                raise ValueError(f"{'/'.join(key)}: {leaf.shape[0]} stacked layers, "
-                                 f"model has {model.cfg.n_layers}")
+        if index:
+            if tuple(leaf.shape[:len(index)]) != counts[key]:
+                raise ValueError(f"{'/'.join(key)}: stacked {tuple(leaf.shape[:len(index)])}, "
+                                 f"model has {counts[key]}")
             leaf = leaf[index]
         if tuple(leaf.shape) != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {tuple(leaf.shape)} != "
@@ -83,18 +98,21 @@ def _from_tree(model: TransformerLM, tree: dict) -> dict[str, torch.Tensor]:
 
 def to_tree(tensors: dict[str, torch.Tensor]) -> dict:
     """Tensors keyed by module parameter name as the reference's tree (new
-    tensors, not views): each per-layer family stacked in layer order into
-    one ``(L, ...)`` leaf."""
+    tensors, not views): each per-layer family stacked in index order into
+    one leaf, ``(L, ...)`` or, doubly indexed, ``(n_macro, m_per_macro,
+    ...)``."""
     tree: dict = {}
-    stacks: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
+    stacks: dict[tuple[str, ...], dict[tuple[int, ...], torch.Tensor]] = {}
     for name, t in tensors.items():
         key, index = _ref_key(name)
-        if index is None:
+        if not index:
             _put(tree, key, t.detach().clone())
         else:
             stacks.setdefault(key, {})[index] = t.detach()
-    for key, layers in stacks.items():
-        _put(tree, key, torch.stack([layers[i] for i in range(len(layers))]))
+    counts = _stack_counts(tensors)
+    for key, parts in stacks.items():
+        leaf = torch.stack([parts[i] for i in sorted(parts)])
+        _put(tree, key, leaf.reshape(counts[key] + tuple(leaf.shape[1:])))
     return tree
 
 
@@ -104,7 +122,7 @@ def _put(tree: dict, key: tuple[str, ...], leaf) -> None:
     tree[key[-1]] = leaf
 
 
-def lm_params_from_jax(model: TransformerLM, tree: dict) -> TransformerLM:
+def lm_params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
     """Replace every parameter of ``model`` by the reference tree's leaf of
     the same name (numpy arrays, or tensors as ``checkpoint.manager.restore``
     gives them; on the model's device, in the leaf's own dtype: an fp32
@@ -116,15 +134,14 @@ def lm_params_from_jax(model: TransformerLM, tree: dict) -> TransformerLM:
     return model
 
 
-def lm_params_to_tree(model: TransformerLM) -> dict:
+def lm_params_to_tree(model: nn.Module) -> dict:
     """The inverse of ``lm_params_from_jax``: the reference's param tree of
     ``model``'s weights (copies, on the model's device, in their dtypes),
-    the per-layer ones stacked into the ``layers/...`` leaves as
-    ``(L, ...)``."""
+    the per-layer ones stacked into the reference's leaves."""
     return to_tree(dict(model.named_parameters()))
 
 
-def opt_state_from_jax(model: TransformerLM, tree: dict) -> dict:
+def opt_state_from_jax(model: nn.Module, tree: dict) -> dict:
     """The reference's ``optim.init_state`` tree (``master``/``m``/``v``
     param trees and ``step``) as the port's ``training.optim`` state, keyed
     by ``model``'s parameter names, on the model's device."""
@@ -141,3 +158,38 @@ def opt_state_to_tree(state: dict) -> dict:
     ``opt_state_from_jax``), the moments stacked as the params are."""
     return {**{key: to_tree(state[key]) for key in ("master", "m", "v")},
             "step": state["step"].detach()}
+
+
+def cache_from_jax(model: nn.Module, tree) -> dict[str, torch.Tensor]:
+    """A recurrent model's cache from the reference's nested cache tree
+    (dicts and tuples of numpy arrays or tensors), by the model's
+    ``CACHE_TREE``: a flat dict of tensors on the model's device, each in
+    its leaf's dtype."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(layout, node):
+        if isinstance(layout, str):
+            out[layout] = _as_tensor(node).to(model.device, copy=True)
+        elif isinstance(layout, dict):
+            for key in layout:
+                walk(layout[key], node[key])
+        else:
+            assert len(layout) == len(node), (layout, len(node))
+            for sub, leaf in zip(layout, node):
+                walk(sub, leaf)
+
+    walk(model.CACHE_TREE, tree)
+    return out
+
+
+def cache_to_tree(model: nn.Module, cache: dict[str, torch.Tensor]):
+    """The inverse of ``cache_from_jax``: the reference's nested cache tree
+    (dicts and tuples) of copies of ``cache``'s leaves."""
+    def build(layout):
+        if isinstance(layout, str):
+            return cache[layout].detach().clone()
+        if isinstance(layout, dict):
+            return {key: build(sub) for key, sub in layout.items()}
+        return tuple(build(sub) for sub in layout)
+
+    return build(model.CACHE_TREE)

@@ -1,0 +1,192 @@
+"""Recurrent-family models: xLSTM (mLSTM + sLSTM).
+
+Counterpart of the xLSTM part of ``repro.models.recurrent``.  The model is
+built from macro-blocks: each macro is ``slstm_every - 1`` mLSTM layers
+(each after its ``mlstm_ln``) and one sLSTM layer (after ``slstm_ln``),
+and ``n_layers // slstm_every`` macros run in a row.  The reference stacks
+the macros (and the mLSTM layers inside each) into doubly stacked leaves
+and scans them; here they are ``ModuleList``s run in a loop, named
+``macros.<i>.mlstm.<j>.<leaf>``, ``macros.<i>.mlstm_ln.<j>``,
+``macros.<i>.slstm.<leaf>`` and ``macros.<i>.slstm_ln``, which
+``models.convert`` maps onto the reference's ``macros/...`` leaves.  Its
+``jax.checkpoint`` of each macro under ``cfg.remat == "full"`` becomes
+``torch.utils.checkpoint`` of each macro while grad is enabled.  Zamba2
+comes with the hybrid family (``ROADMAP.md`` queue 1, item 10).
+
+The decode cache is a flat dict of the recurrent states, each leaf in the
+reference's shape and dtype (``CACHE_TREE`` names where each sits in the
+reference's nested tree).  It has no positions: ``decode_step`` ignores
+``pos``, as the reference does, and a slot of ``ServeEngine`` that is
+reused starts from its predecessor's state (the reference's behaviour).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.device import resolve_device
+from repro_torch.models.blocks import MLSTM, SLSTM, _ones, _param
+from repro_torch.models.common import ArchConfig, dense_init, mm, rms_norm
+from repro_torch.models.ssd import NEG_INF
+from repro_torch.models.transformer import _xent
+
+# the flat cache's keys in the reference's nested cache tree
+CACHE_TREE = {"mlstm": ("mlstm_conv", ("mlstm_s", "mlstm_n", "mlstm_m")),
+              "slstm": ("slstm_h", "slstm_c", "slstm_n", "slstm_m")}
+_MLSTM_KEYS = (CACHE_TREE["mlstm"][0], *CACHE_TREE["mlstm"][1])
+_SLSTM_KEYS = CACHE_TREE["slstm"]
+
+
+class Macro(nn.Module):
+    """One macro-block: ``slstm_every - 1`` mLSTM layers, then an sLSTM
+    layer, each pre-normed and added to the residual."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, m_per_macro: int):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.mlstm = nn.ModuleList(MLSTM(cfg, gen) for _ in range(m_per_macro))
+        self.mlstm_ln = nn.ParameterList(_ones(cfg.d_model, gen) for _ in range(m_per_macro))
+        self.slstm = SLSTM(cfg, gen)
+        self.slstm_ln = _ones(cfg.d_model, gen)
+
+    def forward(self, x, states=None):
+        """(x after the macro, its new states: a list of the mLSTM layers'
+        ``(conv tail, (S̃, ñ, m))`` and the sLSTM's ``(h, c, n, m)``).
+        ``states`` (None: fresh) is the same structure."""
+        m_new = []
+        for j, (layer, ln) in enumerate(zip(self.mlstm, self.mlstm_ln)):
+            y, st = layer(rms_norm(x, ln, self.eps), None if states is None else states[0][j])
+            x = x + y
+            m_new.append(st)
+        y, s_new = self.slstm(rms_norm(x, self.slstm_ln, self.eps),
+                              None if states is None else states[1])
+        return x + y, (m_new, s_new)
+
+
+class XLSTMModel(nn.Module):
+    """xLSTM LM: embedding, ``n_macro`` macro-blocks, ``final_norm`` and
+    ``lm_head`` (the embedding's transpose under ``tie_embeddings``).
+
+    Weights are bf16 but the mLSTM's gate projection ``wif``/``b_if`` and
+    the sLSTM's bias ``b``, which are fp32, drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (``None`` → ``cuda``; raises without
+    one); carry the reference's own ``init`` across with
+    ``models.convert.lm_params_from_jax``.
+    """
+
+    CACHE_TREE = CACHE_TREE
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device | None = None,
+                 seed: int = 0):
+        super().__init__()
+        assert cfg.xlstm is not None
+        self.cfg = cfg
+        se = cfg.xlstm.slstm_every
+        self.n_macro = max(1, cfg.n_layers // se)
+        self.m_per_macro = se - 1
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
+        self.final_norm = _ones(cfg.d_model, gen)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(dense_init(gen, (cfg.d_model, cfg.vocab)))
+        self.macros = nn.ModuleList(Macro(cfg, gen, self.m_per_macro)
+                                    for _ in range(self.n_macro))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _logits(self, h):
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return mm(h, head)
+
+    # ---------------------------- forward ---------------------------- #
+    def _run(self, h, cache=None):
+        """``h`` through every macro from ``cache``; returns (h, the new
+        cache), or (h, None) from fresh states when ``cache`` is None."""
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        outs = []
+        for i, macro in enumerate(self.macros):
+            states = None if cache is None else self._macro_states(cache, i)
+            if remat:  # the forward draws no random numbers: no RNG state to keep
+                h, st = checkpoint(macro, h, states, use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                h, st = macro(h, states)
+            outs.append(st)
+        return h, None if cache is None else self._stack_states(outs)
+
+    def _macro_states(self, cache, i):
+        m_per = [(cache["mlstm_conv"][i, j],
+                  (cache["mlstm_s"][i, j], cache["mlstm_n"][i, j], cache["mlstm_m"][i, j]))
+                 for j in range(self.m_per_macro)]
+        return m_per, tuple(cache[key][i] for key in _SLSTM_KEYS)
+
+    def _stack_states(self, outs):
+        """The macros' states as the flat cache, each leaf stacked
+        ``(n_macro, m_per_macro, ...)`` (mLSTM) or ``(n_macro, ...)``."""
+        mflat = [[(st[0], *st[1]) for st in m] for m, _ in outs]
+        cache = {key: torch.stack([torch.stack([st[pos] for st in m]) for m in mflat])
+                 for pos, key in enumerate(_MLSTM_KEYS)}
+        cache.update({key: torch.stack([s[pos] for _, s in outs])
+                      for pos, key in enumerate(_SLSTM_KEYS)})
+        return cache
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits ``(B, S, V)`` of a whole sequence from fresh states."""
+        h, _ = self._run(self.embed[tokens])
+        return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
+
+    def loss(self, batch):
+        """Mean next-token cross entropy of ``batch["labels"]``
+        (``loss_mask`` optional); (loss, {"xent"})."""
+        loss = _xent(self(batch["tokens"]), batch["labels"], batch.get("loss_mask"))
+        return loss, {"xent": loss}
+
+    # ---------------------------- serving ----------------------------- #
+    def cache_shape(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
+        """The cache's leaves as meta tensors: the mLSTM's conv tail
+        ``(nm, mm, B, cw-1, d_in)`` bf16 and ``S̃ (nm, mm, B, h, hd, hd)``,
+        ``ñ``, ``m``; the sLSTM's h, c, n ``(nm, B, h, hd)`` and m; fp32
+        but the tail.  ``s_max`` is unused: the states do not grow."""
+        cfg = self.cfg
+        d_in = int(cfg.d_model * cfg.xlstm.proj_factor)
+        h = cfg.n_heads
+        hd_i, hd = d_in // h, cfg.d_model // h
+        cw = cfg.xlstm.conv_width
+        nm, mp, b = self.n_macro, self.m_per_macro, batch_size
+        f32 = torch.float32
+        shapes = {"mlstm_conv": ((nm, mp, b, cw - 1, d_in), torch.bfloat16),
+                  "mlstm_s": ((nm, mp, b, h, hd_i, hd_i), f32),
+                  "mlstm_n": ((nm, mp, b, h, hd_i), f32),
+                  "mlstm_m": ((nm, mp, b, h), f32),
+                  **{key: ((nm, b, h, hd), f32) for key in _SLSTM_KEYS[:3]},
+                  "slstm_m": ((nm, b, h), f32)}
+        return {key: torch.empty(shape, dtype=dt, device="meta")
+                for key, (shape, dt) in shapes.items()}
+
+    def init_cache(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
+        """Zeros, but the stabilizers at -1e30."""
+        cache = {key: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                 for key, s in self.cache_shape(batch_size, s_max).items()}
+        for key in ("mlstm_m", "slstm_m"):
+            cache[key].fill_(NEG_INF)
+        return cache
+
+    def prefill(self, batch):
+        """Full-sequence forward of ``batch["tokens"]`` from fresh states;
+        returns (last-token logits ``(B, 1, V)``, the cache after it)."""
+        h = self.embed[batch["tokens"]]
+        h, cache = self._run(h, self.init_cache(h.shape[0], 0))
+        h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return self._logits(h[:, -1:, :]), cache
+
+    def decode_step(self, cache, batch):
+        """One token for every sequence, ``batch["tokens"]`` ``(B, 1)``
+        through the chunked mLSTM core at S = 1 and the sLSTM (the
+        reference's ``_run``; ``pos`` is ignored).  Returns (logits
+        ``(B, 1, V)``, the new cache); ``cache`` is not modified."""
+        h, new = self._run(self.embed[batch["tokens"]], cache)
+        return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps)), new

@@ -950,3 +950,61 @@ def test_family_remat_changes_no_gradient_on_the_card(card, name):
     assert torch.equal(lf, ln) and torch.equal(af, an)
     for a, b in zip(gf, gn):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the ssm family (xLSTM) on the card
+# --------------------------------------------------------------------- #
+def test_xlstm_decode_on_the_card_matches_the_cpu(card):
+    """xlstm-350m's smoke config: ``prefill`` of 20 tokens, then 20
+    ``decode_step``s from its cache, on the card against the CPU on the same
+    weights: logits and every state leaf within 0.25, the bf16 bound that
+    ``tests/test_torch_xlstm.py`` holds the port to the reference with (the
+    two devices round the bf16 products and their sums in different
+    orders, and the recurrent states carry it on)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_smoke_config("xlstm_350m")
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    with torch.no_grad():
+        got, want = gpu.prefill({"tokens": toks[:, :16].to(card)}), cpu.prefill({"tokens": toks[:, :16]})
+        assert (got[0].float().cpu() - want[0].float()).abs().max() <= 0.25
+        caches = [got[1], want[1]]
+        for t in range(16, 36):
+            g, caches[0] = gpu.decode_step(caches[0], {"tokens": toks[:, t:t + 1].to(card),
+                                                       "pos": torch.tensor(t, device=card)})
+            c, caches[1] = cpu.decode_step(caches[1], {"tokens": toks[:, t:t + 1],
+                                                       "pos": torch.tensor(t)})
+            assert torch.isfinite(g.float()).all()
+            assert (g.float().cpu() - c.float()).abs().max() <= 0.25, t
+    torch.cuda.synchronize()
+    for key in caches[1]:
+        assert caches[0][key].dtype == caches[1][key].dtype, key
+        assert (caches[0][key].float().cpu() - caches[1][key].float()).abs().max() <= 0.25, key
+
+
+def test_xlstm_remat_changes_no_gradient_on_the_card(card):
+    """``remat="full"`` (each macro checkpointed) against ``"none"`` on the
+    card at xlstm-350m's smoke config: the loss and every gradient bit for
+    bit."""
+    from repro_torch.configs.registry import get_smoke_config, override
+    from repro_torch.models.api import build_model
+
+    runs = []
+    for remat in ("full", "none"):
+        cfg = override(get_smoke_config("xlstm_350m"), remat=remat)
+        model = build_model(cfg, device=card)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        batch = _family_batch(cfg, card, seed=5)
+        loss, _ = model.loss(batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, list(params.values())), list(params)))
+    (lf, gf, names), (ln, gn, _) = runs
+    assert torch.equal(lf, ln)
+    for name, a, b in zip(names, gf, gn):
+        assert torch.equal(a, b), name

@@ -485,3 +485,46 @@ def test_hand_over_from_reference_engine_mid_stream():
         for name in ("emb", "valid", "kth"):
             assert np.asarray(getattr(js, name)).tobytes() == \
                 getattr(store, name).numpy().tobytes(), name
+
+
+def test_pipelined_relabels_read_alike_in_both_packages():
+    """A solve in flight writes its F over seeds that the next window
+    relabels (flipped, unlabelled, or unlabeled rows given a label) while
+    it runs; the next solve starts from that F.  Both packages do so: after
+    every pipelined commit the graphs and labels are byte-identical and F
+    on the unlabeled rows within 20·δ, so a later solve reads the stale F
+    alike in both (no fault of the port)."""
+    spec = dict(total_vertices=300, batch_size=60, emb_dim=EMB_DIM, seed=10,
+                class_sep=6.0, noise=0.9)
+    jg, tg = jdyn.DynamicGraph(EMB_DIM, k=4), DynamicGraph(EMB_DIM, k=4)
+    je = JaxStreamEngine(jg, delta=DELTA, backend="ref", ingest="host")
+    te = _engine(tg)
+    rng = np.random.default_rng(11)
+    relabelled, commits = np.zeros(3, int), 0
+    for i, ((jb, _), (tb, _)) in enumerate(zip(
+            jsynth.gaussian_mixture_stream(jsynth.StreamSpec(**spec)),
+            tsynth.gaussian_mixture_stream(tsynth.StreamSpec(**spec)))):
+        if i:  # relabel ids whose solve may still be in flight
+            alive = np.flatnonzero(tg.alive)
+            seeds = alive[tg.labels[alive] != UNLABELED]
+            free = alive[tg.labels[alive] == UNLABELED]
+            n_flip = min(2, len(seeds) - 1)  # keep a seed of each window as it is
+            flip = rng.choice(seeds, n_flip, replace=False)
+            drop = rng.choice(np.setdiff1d(seeds, flip), int(len(seeds) - n_flip > 1),
+                              replace=False)
+            give = rng.choice(free, 4, replace=False)
+            ids = np.concatenate([flip, drop, give]).astype(np.int64)
+            labels = np.concatenate([1 - tg.labels[flip], np.full(len(drop), UNLABELED),
+                                     rng.integers(0, 2, 4)]).astype(np.int8)
+            for b in (jb, tb):
+                b.rel_ids, b.rel_labels = ids.copy(), labels.copy()
+            relabelled += [len(flip), len(drop), len(give)]
+        jprev, tprev = je.submit(jb), te.submit(tb)
+        assert (jprev is None) == (tprev is None)
+        if tprev is not None:
+            commits += 1
+            assert tprev.converged and jprev.converged
+            _check_against_reference(jg, tg)
+    assert je.drain().converged and te.drain().converged
+    _check_against_reference(jg, tg)
+    assert commits == 4 and (relabelled >= [4, 2, 16]).all(), relabelled
