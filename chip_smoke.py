@@ -160,8 +160,9 @@ Phases (each prints its lines and its seconds; any failed check raises):
    beside a single-device engine with the same order: graphs and labels
    bitwise after each batch, at least one batch on the halo collective.
 13. Path 8, the LM serving slice.  (a) ``PseudoLabelPipeline(k=5,
-   delta=1e-4)`` on the card curates ``--vertices`` documents (20,000 by
-   default) in 4 waves of 64-token documents over qwen3-0.6b's vocabulary
+   delta=1e-4)`` on the card curates ``LM_DOCS`` documents (10,000; 20,000
+   formerly; fewer under a smaller ``--vertices``) in 4 waves of
+   64-token documents over qwen3-0.6b's vocabulary
    of 151,936, 2% labeled (``data.synth.make_documents``, the generator of
    ``examples/semi_supervised_lm.py``): sweep launches equal the waves'
    sweeps, the last wave's solve run again with ``backend="ref"`` agrees
@@ -169,7 +170,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    exceed 0.9.  (b) ``build_model(get_config("qwen3-0.6b"))`` at its full
    published config (28 layers, d_model 1024, GQA 16/8, head_dim 128,
    qk-norm, vocab 151,936; bf16 weights from a seeded generator) behind
-   ``ServeEngine(max_batch=8, s_max=256)``: 24 requests whose prompts are
+   ``ServeEngine(max_batch=8, s_max=256)``: 16 requests (24 formerly)
+   whose prompts are
    16–64-token prefixes of curated documents, ``max_new`` 16–64.  Every
    request finishes with its ``max_new`` tokens; the logits at every
    generated position agree with the plain fp32 forward (the same weights
@@ -193,7 +195,7 @@ Phases (each prints its lines and its seconds; any failed check raises):
    launches equal the waves' sweeps and the other kernels launch 0 times;
    accuracy and purity exceed 0.9.  (b) ``build_model(get_config(
    "qwen3-0.6b"))`` at its full published config (751,632,384 parameters,
-   bf16 from a seeded generator, ``remat="full"``) trains 30 steps (the
+   bf16 from a seeded generator, ``remat="full"``) trains 20 steps (the
    example's default is 200) of
    8 × 64 curated tokens through ``make_train_step`` (lr 3e-3, warmup 10):
    the last loss below the first.  It prints the step's median and p99 ms
@@ -230,7 +232,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    launches from ``torch.profiler`` beside its bound (every weight read:
    the capacity products touch all 32 experts), and, reported, not held,
    the logits' gap to the plain fp32 forward of each request's tokens and
-   its greedy agreement.  (c) The same model trains 30 steps of 8 x 64
+   its greedy agreement.  (c) The same model trains 20 steps (30 before PR
+   23) of 8 x 64
    curated tokens through ``make_train_step`` (``remat="full"``, lr 3e-3,
    warmup 10): the last loss below the first, every aux in (0, E], loss =
    xent + 0.01·aux, every gradient finite, the per-layer check on a
@@ -249,8 +252,9 @@ Phases (each prints its lines and its seconds; any failed check raises):
    "xlstm-350m"))`` at its full published config (24 layers: 3 macros of 7
    mLSTM and 1 sLSTM, d_model 1024, 4 heads, proj_factor 2, conv_width 4,
    chunk 256, vocab 50,304; 524,142,760 parameters, bf16 but the fp32
-   gates, nothing cut) behind ``ServeEngine(max_batch=8, s_max=256)``: 16
-   requests of 32 curated tokens, 16 new each, beside an fp32 twin driven
+   gates, nothing cut) behind ``ServeEngine(max_batch=8, s_max=256)``: 8
+   requests (16 formerly) of 32 curated tokens, 16 new each, beside an
+   fp32 twin driven
    in lockstep (the same calls, tokens and slot adoptions, its own cache):
    every served logit within ``XLSTM_TOL`` of the twin's; the pooled step's
    median and p99 ms, tokens a second, kernel time and launches from
@@ -268,6 +272,33 @@ Phases (each prints its lines and its seconds; any failed check raises):
    sLSTM block's bf16 output within ``XLSTM_LAYER_TOL`` of its fp32 upcast
    on the same input, and within ``XLSTM_TRAINED_TOL`` on a training batch
    after (d)'s steps.  Path 11 runs no kernel but the sweep.
+17. Path 12, the hybrid family.  (a) The same curation over zamba2-7b's
+   vocabulary (32,000), every sweep held bitwise, sweep launches equal to
+   the sweeps, the other kernels 0.  (b) ``build_model(get_config(
+   "zamba2-7b"))`` at its full published config (12 macros of 6 Mamba2
+   layers and one application of the single shared attention+MLP block,
+   d_model 3,584, d_in 7,168, 112 SSM heads of 64, d_state 64, chunk 256;
+   the shared block 32 heads of 112, d_ff 14,336; vocab 32,000;
+   6,049,328,256 parameters, bf16 but the fp32 ``a_log``, ``d_skip`` and
+   ``dt_bias``, nothing cut) behind ``ServeEngine(max_batch=8,
+   s_max=256)``: 8 requests of 32 curated tokens, 16 new each, beside an
+   fp32 twin driven in lockstep: every served logit within ``ZAMBA_TOL`` of
+   the twin's; the pooled step's median and p99 ms, tokens a second,
+   kernel time, launches and idle share from ``torch.profiler`` beside its
+   bound (the bf16 weights, the fp32 SSM states, the KV and the conv tails
+   read and written once), the peak.  (c) ``prefill`` of 2 x 256 curated
+   tokens (one SSD chunk) beside its bound, against a token-by-token
+   ``decode_step`` chain over them: the last logits within
+   ``ZAMBA_CHAIN_TOL``, every cache leaf within ``ZAMBA_STATE_TOL`` of its
+   largest |x|.  (d) The published widths cut to one macro
+   (``ZAMBA_TRAIN_LAYERS``) train ``ZAMBA_STEPS`` steps of 8 x 256 curated
+   tokens through ``make_train_step``: the last loss below the first,
+   every gradient finite (the reference's SSD backward is not at this
+   length); step median/p99, kernels, the bound, the peak.  (e) On one
+   pooled decode step's inputs and on a training batch's before and after
+   (d), each Mamba2 layer's and the shared attention's and MLP's bf16
+   output within ``ZAMBA_LAYER_TOL`` of its fp32 upcast on the same input.
+   Path 12 runs no kernel but the sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -2634,7 +2665,13 @@ def phase_mesh_halo(vertices, batch_size, n_batches=2):
 # --------------------------------------------------------------------- #
 LM_ARCH = "qwen3-0.6b"  # at its full published config (src/repro_torch/configs/qwen3_0_6b.py)
 LM_WAVES, LM_SEQ = 4, 64  # path 8's documents: 4 waves of 64-token documents
-LM_REQUESTS, LM_POOL, LM_S_MAX = 24, 8, 256
+# path 8 curates 10,000 documents (--vertices, 20,000, formerly, cut so
+# the script with path 12 stays inside its time limit: the host graph update
+# of its last waves took ~30 s)
+LM_DOCS = 10_000
+# 16 requests (two pool loads; 24 formerly, cut so the script with path
+# 12 stays inside its time limit)
+LM_REQUESTS, LM_POOL, LM_S_MAX = 16, 8, 256
 LM_CONTROL_REQUESTS = 8  # the fp8-cache control serves the first pool load again
 LM_LONG, LM_LONG_DECODE = 4096, 16  # (c): the chunked prefill, then decoding through it
 # The engine's bf16 logits against the plain fp32 forward of the same weights,
@@ -2791,7 +2828,7 @@ def phase_curation(docs, card, waves=LM_WAVES):
 
 def phase_lm_serve(curated, card):
     """Path 8 (b): ``ServeEngine(max_batch=8, s_max=256)`` on qwen3-0.6b at
-    its full published config, 24 requests cut from the curated documents,
+    its full published config, 16 requests cut from the curated documents,
     every generated position's logits held against the plain fp32 forward;
     then the same with the KV cache rounded through fp8, which must fail
     the tolerance."""
@@ -2951,8 +2988,9 @@ def phase_lm(docs, card):
 # the LM training slice (path 9)
 # --------------------------------------------------------------------- #
 # examples/torch_semi_supervised_lm.py's default is 200 steps; path 9 takes
-# 30, so that the script with path 11 stays well inside its time limit
-TRAIN_STEPS = 30
+# 20 (30 formerly), so that the script with paths 11 and 12 stays well
+# inside its time limit
+TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
 # The bf16 step's gradients against an fp32 autograd of the same weights, per
 # leaf ||g_bf16 - g_fp32|| / ||g_fp32||, on the card with TF32 off: 0.0423
@@ -3036,7 +3074,12 @@ def train_bound_ms(cfg, n_params, n_active=None):
     return (sum(parts),) + parts
 
 
-def step_device_time(model, state, batch, opt_cfg, reps=2):
+# train steps traced by torch.profiler on paths 9-12: one (two formerly;
+# parsing the trace of a 36,000-launch step took the host tens of seconds)
+PROFILED_STEPS = 1
+
+
+def step_device_time(model, state, batch, opt_cfg, reps=PROFILED_STEPS):
     """Kernel time (ms) and kernel launches of one train step, from
     ``torch.profiler`` over ``reps`` steps after a warm-up; returns the
     state after them."""
@@ -3350,8 +3393,8 @@ def phase_train(card):
           f"(p99 {np.percentile(fb, 99):.2f}), optimizer median {np.median(opt):.2f} ms "
           f"(p99 {np.percentile(opt, 99):.2f}); {tok_s:.0f} tokens/s; first step "
           f"{rec['step_ms'][0]:.1f} ms")
-    print(f"   [{card}] one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms "
-          f"of kernels ({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}"
+    print(f"   [{card}] one step on the card (torch.profiler, {PROFILED_STEPS} step): "
+          f"{step_kernel_ms:.2f} ms of kernels ({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}"
           f" of the median step; bound {bound[0]:.2f} ms (bf16 products {bound[1]:.2f}, fp32 "
           f"attention {bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated "
           f"{peak:,} B")
@@ -3386,9 +3429,13 @@ def phase_train(card):
 MOE_ARCH = "granite-moe-1b-a400m"  # full published config (configs/granite_moe_1b_a400m.py)
 VLM_ARCH = "qwen2-vl-72b"  # every width of configs/qwen2_vl_72b.py, cut to VLM_LAYERS layers
 VLM_LAYERS = 4  # its 80 layers are 145 GB of bf16 weights; 4 keep every width in 12 GB
-FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 16, 8, 32, 16
-MOE_REQUESTS = 8  # path 10 (b) serves 8 of them (one pool load), path 11 (b) all 16
-FAM_STEPS = 30  # (c): train steps of TRAIN_BATCH x TRAIN_SEQ curated tokens
+# paths 10 (b) and 11 (b) serve 8 requests, one pool load (path 10 (b) and
+# path 11 (b) formerly 16 each, cut for the script's time limit)
+FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 8, 8, 32, 16
+# train steps of TRAIN_BATCH x TRAIN_SEQ curated tokens: path 10 (c) 20 (30
+# formerly, cut for the script's time limit), path 11 (d) 30 (its loss
+# falls by 0.005 over 30 steps at lr 3e-3: fewer steps are not held to fall)
+FAM_STEPS, XLSTM_STEPS = 20, 30
 VLM_BATCH, VLM_SEQ = 2, 256  # (d): 64 patch embeddings and 192 text tokens a row
 # The MoE block in bf16 against its fp32 upcast on the same bf16 input: both
 # route through the same fp32 router on the same values, so they route alike;
@@ -3500,6 +3547,14 @@ def fixed_requests(curated, n, seed):
             for i, d in enumerate(docs)]
 
 
+def curated_rows(curated, b, s, rng):
+    """``b`` rows of ``s`` tokens on the card, each row curated documents
+    (of 64 tokens) end to end, drawn from ``rng`` without repeats."""
+    per_row = s // curated.shape[1]
+    docs = rng.choice(len(curated), b * per_row, replace=False)
+    return torch.as_tensor(curated[docs].reshape(b, s), dtype=torch.int64, device="cuda")
+
+
 def serve_recorded(model, reqs):
     """``reqs`` through a fresh ``ServeEngine(max_batch=8, s_max=256)``,
     recorded as path 8 records it; every MoE layer's input is kept on the
@@ -3580,12 +3635,12 @@ def phase_moe_serve(curated, card):
           f"{cfg.moe.d_expert}, vocab {cfg.vocab}: {n_params:,} parameters "
           f"({cfg.num_active_params():,} active a token), {weight_bytes:,} B of weights (fp32 "
           f"routers), {expert_bytes:,} B of them experts, drawn in {build_s:.1f} s")
-    reqs = fixed_requests(curated, MOE_REQUESTS, seed=1)
+    reqs = fixed_requests(curated, FAM_REQUESTS, seed=1)
     engine, rec = serve_recorded(model, reqs)
     cache_bytes = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
-    print(f"   [{card}] (b) {MOE_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
+    print(f"   [{card}] (b) {FAM_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} new "
           f"each, in {rec['run_s']:.1f} s: {engine.steps} pooled steps, {engine.prefill_calls} "
           f"prefill calls; a pooled decode step median {rec['p50']:.2f} ms, p99 "
           f"{rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at {LM_POOL} slots "
@@ -3670,7 +3725,8 @@ def phase_moe_train(model, curated, card):
           f"gradient finite: {all_finite}")
     print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
           f"{np.percentile(steps, 99):.2f} ms; {tok_s:.0f} tokens/s; first step {ms[0]:.1f} ms; "
-          f"one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms of kernels "
+          f"one step on the card (torch.profiler, {PROFILED_STEPS} step): "
+          f"{step_kernel_ms:.2f} ms of kernels "
           f"({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}; bound "
           f"{bound[0]:.2f} ms (bf16 products of the active parameters {bound[1]:.2f}, fp32 "
           f"attention {bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated "
@@ -3893,18 +3949,19 @@ def block_check_on_batch(model, toks, what, card, tol=None):
     return check_xlstm_blocks(model, caps["x"], what, card, tol)
 
 
-def serve_lockstep(model, twin, reqs):
+def serve_lockstep(model, twin, reqs, inputs=None, path="path 11"):
     """``reqs`` through ``ServeEngine(model, 8, 256)`` and copies of them
     through ``ServeEngine(twin, 8, 256)`` in lockstep: every submit and step
     of the first is followed by the same call on the second, whose requests
     then take the first's tokens, so both make the same calls on the same
     tokens and adopt the same slots.  Only the first engine's calls are
-    timed.  Every mLSTM and sLSTM block's input is kept on the first pooled
-    step with every slot busy."""
+    timed.  Every block's input that ``inputs`` (``xlstm_inputs`` by
+    default: every mLSTM and sLSTM block) records is kept on the first
+    pooled step with every slot busy."""
     engine = ServeEngine(model, max_batch=LM_POOL, s_max=LM_S_MAX)
     shadow = ServeEngine(twin, max_batch=LM_POOL, s_max=LM_S_MAX)
     rec, rec32 = record_engine(engine), record_engine(shadow)
-    caps, remove = xlstm_inputs(model)
+    caps, remove = (inputs or xlstm_inputs)(model)
     twins = {r.uid: Request(uid=r.uid, prompt=r.prompt.copy(), max_new=r.max_new) for r in reqs}
 
     def follow():
@@ -3932,7 +3989,7 @@ def serve_lockstep(model, twin, reqs):
     require(all(r.done and len(r.out) == r.max_new for r in reqs) and
             [s is None for s in shadow.slots] == [True] * LM_POOL and
             shadow.decode_calls == engine.decode_calls,
-            "path 11: the engine and its fp32 twin did not finish alike")
+            f"{path}: the engine and its fp32 twin did not finish alike")
     steps, full = np.array(rec["step_ms"]), np.array(rec["active"]) == LM_POOL
     rec.update(p50=float(np.median(steps)), p99=float(np.percentile(steps, 99)),
                tok_s=float(LM_POOL * full.sum() / (steps[full].sum() / 1e3)),
@@ -3942,12 +3999,13 @@ def serve_lockstep(model, twin, reqs):
     return engine, rec, gap
 
 
-def xlstm_decode_bound_ms(model, engine):
-    """The least time (ms) of one pooled decode step: every bf16 weight but
-    the embedding read once (the lm_head included), 8 embedding rows, and
-    the recurrent state read and written once (the fp32 S̃, ñ, m of the 21
-    mLSTM layers, the bf16 conv tails, the sLSTMs' h, c, n, m), at the HBM
-    rate.  Returns (ms, bytes, state bytes)."""
+def state_decode_bound_ms(model, engine):
+    """The least time (ms) of one pooled decode step of a model whose cache
+    is read and written whole (paths 11 and 12): every weight but the
+    embedding read once (the lm_head included), 8 embedding rows, and every
+    leaf of the engine's cache read and written once (xLSTM's S̃, ñ, m, conv
+    tails and sLSTM states; Zamba2's SSM states, conv tails and k and v), at
+    the HBM rate.  Returns (ms, bytes, cache bytes)."""
     params = dict(model.named_parameters())
     weights = sum(p.numel() * p.element_size() for n, p in params.items() if n != "embed")
     state = sum(leaf.numel() * leaf.element_size() for leaf in engine.cache.values())
@@ -3979,7 +4037,7 @@ def xlstm_train_bound_ms(model, n_params):
 
 def phase_xlstm_serve(curated, card):
     """Path 11 (b), (e) on a decode input: xlstm-350m at its full published
-    config behind ``ServeEngine(max_batch=8, s_max=256)``, 16 requests of
+    config behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of
     32 curated tokens and 16 new tokens, against an fp32 twin in lockstep;
     the gap to a fresh fp32 forward of each request's own tokens reported."""
     cfg = get_config(XLSTM_ARCH)
@@ -4017,7 +4075,7 @@ def phase_xlstm_serve(curated, card):
           f"{XLSTM_TOL}); max_memory_allocated {peak:,} B (the twin's included)")
     require(gap <= XLSTM_TOL, f"path 11: served logits {gap} from the fp32 twin")
     step_device_ms, kernels = decode_device_time(model, engine)
-    bound_ms, read, state = xlstm_decode_bound_ms(model, engine)
+    bound_ms, read, state = state_decode_bound_ms(model, engine)
     print(f"   [{card}] one pooled decode step on the card (torch.profiler, 3 steps): "
           f"{step_device_ms:.3f} ms of kernels ({kernels:.0f} launches), busy "
           f"{step_device_ms / rec['p50']:.1%} of the median step; bound {bound_ms:.3f} ms (bytes: "
@@ -4043,11 +4101,7 @@ def phase_xlstm_prefill(model, curated, card):
     token-by-token ``decode_step`` chain over the same tokens from a fresh
     cache: the last logits within ``XLSTM_CHAIN_TOL``, every state leaf
     within ``XLSTM_STATE_TOL`` of its largest |x|."""
-    rng = np.random.default_rng(3)
-    per_row = XLSTM_PREFILL_S // curated.shape[1]
-    docs = rng.choice(len(curated), XLSTM_PREFILL_B * per_row, replace=False)
-    toks = torch.as_tensor(curated[docs].reshape(XLSTM_PREFILL_B, XLSTM_PREFILL_S),
-                           dtype=torch.int64, device=model.device)
+    toks = curated_rows(curated, XLSTM_PREFILL_B, XLSTM_PREFILL_S, np.random.default_rng(3))
     with torch.no_grad():
         model.prefill({"tokens": toks})  # warm-up
         torch.cuda.synchronize()
@@ -4081,17 +4135,17 @@ def phase_xlstm_prefill(model, curated, card):
 
 def phase_xlstm_train(model, curated, card):
     """Path 11 (d), (e) on a training batch: the served model trains
-    ``FAM_STEPS`` steps of 8 x 64 curated tokens through ``make_train_step``
+    ``XLSTM_STEPS`` steps of 8 x 64 curated tokens through ``make_train_step``
     (``remat="full"``, lr 3e-3, warmup 10): the loss falls, every gradient
     is finite; step median/p99, kernels, the bound, the peak."""
     cfg = model.cfg
-    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=FAM_STEPS)
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=XLSTM_STEPS)
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(model, opt_cfg)
     state = optim_module.init_state(dict(model.named_parameters()))
     rng = np.random.default_rng(1)
     batches = [torch.as_tensor(curated[rng.integers(0, len(curated), size=TRAIN_BATCH)],
-                               dtype=torch.int32, device=model.device) for _ in range(FAM_STEPS)]
+                               dtype=torch.int32, device=model.device) for _ in range(XLSTM_STEPS)]
     served = block_check_on_batch(model, batches[0], "a training batch, the served weights",
                                   card)
     update, finite = optim_module.update, []
@@ -4131,12 +4185,13 @@ def phase_xlstm_train(model, curated, card):
     n_params = sum(p.numel() for p in model.parameters())
     step_kernel_ms, step_launches, state = step_device_time(model, state, batch, opt_cfg)
     bound = xlstm_train_bound_ms(model, n_params)
-    print(f"   [{card}] (d) {cfg.name} at full width, remat {cfg.remat!r}: {FAM_STEPS} steps of "
+    print(f"   [{card}] (d) {cfg.name} at full width, remat {cfg.remat!r}: {XLSTM_STEPS} steps of "
           f"{TRAIN_BATCH}x{TRAIN_SEQ} curated tokens in {train_s:.1f} s; loss {losses_f[0]:.4f} "
           f"-> {losses_f[-1]:.4f}; every gradient finite: {all_finite}")
     print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
           f"{np.percentile(steps, 99):.2f} ms; {tok_s:.0f} tokens/s; first step {ms[0]:.1f} ms; "
-          f"one step on the card (torch.profiler, 2 steps): {step_kernel_ms:.2f} ms of kernels "
+          f"one step on the card (torch.profiler, {PROFILED_STEPS} step): "
+          f"{step_kernel_ms:.2f} ms of kernels "
           f"({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}; bound "
           f"{bound[0]:.2f} ms (bf16 products {bound[1]:.2f}, fp32 mLSTM and sLSTM cores "
           f"{bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated {peak:,} B")
@@ -4144,7 +4199,7 @@ def phase_xlstm_train(model, curated, card):
             f"path 11: loss {losses_f[0]} -> {losses_f[-1]}")
     require(all_finite, "path 11: a gradient is not finite")
     trained = block_check_on_batch(model, batch["tokens"], f"a training batch after "
-                                   f"{FAM_STEPS} steps", card, XLSTM_TRAINED_TOL)
+                                   f"{XLSTM_STEPS} steps", card, XLSTM_TRAINED_TOL)
     del state
     return dict(xlstm_train_losses=losses_f, xlstm_train_s=train_s,
                 xlstm_train_step_ms_p50=float(np.median(steps)),
@@ -4180,6 +4235,425 @@ def phase_xlstm(card):
     require(out["launches"]["ell"] == out["sweeps"] and
             all(n == 0 for key, n in out["launches"].items() if key != "ell"),
             f"path 11: launches {out['launches']} for {out['sweeps']} sweeps")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the hybrid family (path 12)
+# --------------------------------------------------------------------- #
+ZAMBA_ARCH = "zamba2-7b"  # full published config (configs/zamba2_7b.py), nothing cut in (b), (c)
+# (d) trains the published widths cut to one macro: n_layers 7 gives
+# round(7 / (6 + 1)) = 1 macro of 6 Mamba2 layers and the shared block,
+# 902,776,032 parameters.  All 12 macros would need ~35-44 B a parameter
+# (bf16 weights and gradients, fp32 masters and moments, activations):
+# ~210-265 GB, beyond the card's 80 GB.
+ZAMBA_TRAIN_LAYERS = 7
+ZAMBA_REQUESTS = 8  # (b): one pool load
+ZAMBA_PREFILL_B, ZAMBA_PREFILL_S = 2, 256  # (c): one SSD chunk at the published chunk of 256
+ZAMBA_TRAIN_SEQ = 256  # (d): 8 x 256, where the reference's SSD backward gives a non-finite ∂la
+ZAMBA_STEPS = 20  # (d): no more than FAM_STEPS
+# (d)'s peak lr: at 3e-3 (paths 9-11's) Adam moves each weight by ~18% of its
+# init scale (1/sqrt(3584)) a step and the loss rose, 10.8598 -> 11.6104 over
+# 20 steps, measured on one H100
+ZAMBA_LR = 3e-4
+# Tolerances, each about twice the gap it bounds as measured on the H100
+# (PERF.md §6).  (b) The served bf16 logits against the fp32 twin
+# driven in lockstep, max |diff| over every generated position: 0.6492
+# measured, 84 layers of bf16 rounding carried by the SSM states and the
+# residual stream.  (c) Prefill's last logits against the decode chain's:
+# 0.5547; its cache against the chain's, relative to each leaf's largest
+# |x|: 0.2044 (the last macros' cached k, whose inputs carry the two bf16
+# paths' differences through 11 macros).  (e) Each Mamba2 layer's and the
+# shared attention's and MLP's bf16 output against its fp32 upcast on the
+# same input, relative to the fp32 output's largest |y|: 0.0090 (Mamba2, a
+# decode input), 0.0197 (a training batch), 0.0181 after (d)'s steps, held
+# within 2^-4 (path 11's bound) in all three.
+ZAMBA_TOL = 1.3
+ZAMBA_CHAIN_TOL = 1.1
+ZAMBA_STATE_TOL = 0.4
+ZAMBA_LAYER_TOL = 2.0 ** -4
+
+
+def _kept(x):
+    """A copy of ``x``'s float tensors (in tuples too); the rest as it is."""
+    if isinstance(x, tuple):
+        return tuple(_kept(a) for a in x)
+    if isinstance(x, torch.Tensor) and x.dtype.is_floating_point:
+        return x.detach().clone()
+    return x
+
+
+def zamba_blocks(model):
+    """(name, module) of every block path 12 holds to its fp32 upcast: each
+    Mamba2 layer, and the shared block's attention and MLP."""
+    return ([(f"macros.{i}.mamba.{j}", blk) for i, m in enumerate(model.macros)
+             for j, blk in enumerate(m.mamba)]
+            + [("shared.attn", model.shared.attn), ("shared.mlp", model.shared.mlp)])
+
+
+def zamba_inputs(model, decode=True):
+    """Keep each Mamba2 layer's first input (``u`` and the state it started
+    from) and, at each application of the shared block, its attention's
+    input (the normed ``x`` and ``positions``, or at decode a copy of that
+    application's k and v cache before its write, and ``pos``) and its
+    MLP's, while ``rec["on"]`` is set; ``decode`` wraps the Mamba2 layers'
+    and the attention's ``decode``, else their forward.  Returns (rec,
+    remove)."""
+    rec = dict(on=False, x={})
+
+    def keep(name, args):
+        if not rec["on"]:
+            return
+        if name.startswith("shared"):  # one a macro: the application's index
+            name = f"{name}@{sum(k.startswith(name) for k in rec['x'])}"
+        if name not in rec["x"]:
+            rec["x"][name] = _kept(args)
+
+    handles, wrapped = [], []
+    for name, blk in zamba_blocks(model):
+        if decode and name != "shared.mlp":
+            def kept(*args, name=name, fn=blk.decode):
+                keep(name, args)
+                return fn(*args)
+            blk.decode = kept
+            wrapped.append(blk)
+        else:
+            handles.append(blk.register_forward_hook(
+                lambda _m, args, _o, name=name: keep(name, args)))
+    return rec, lambda: ([h.remove() for h in handles]
+                         + [blk.__dict__.pop("decode") for blk in wrapped])
+
+
+def check_zamba_blocks(model, xs, what, card, decode=True):
+    """Each Mamba2 layer and, at each application of the shared block, its
+    attention and its MLP on their kept bf16 inputs against an fp32 upcast
+    of the same block on the same input (and state, and KV cache): the
+    outputs within ``ZAMBA_LAYER_TOL`` of the fp32 output's largest |y|.
+    Returns the worst ratio of each kind."""
+    tol = ZAMBA_LAYER_TOL
+    n_blocks = model.n_macro * (model.m_per_macro + 2)
+    require(len(xs) == n_blocks, f"path 12 {what}: {len(xs)} of {n_blocks} block inputs kept")
+    modules = dict(zamba_blocks(model))
+    worst = {"mamba": 0.0, "attn": 0.0, "mlp": 0.0}
+    with torch.no_grad():
+        for name, args in sorted(xs.items()):
+            key = name.split("@")[0]
+            block = modules[key]
+            twin = copy.deepcopy(block).float()
+            kind = key.split(".")[-1] if key.startswith("shared") else "mamba"
+            if kind == "mlp":
+                y16, y32 = block(args[0]), twin(args[0].float())
+            elif kind == "attn" and decode:  # x, the k and v caches, pos (and pos3)
+                x, k, v, *pos = args
+                y16 = block.decode(x, k.clone(), v.clone(), *pos)
+                y32 = twin.decode(x.float(), k.float(), v.float(), *pos)
+            elif kind == "attn":  # x, positions (and pos3)
+                y16, y32 = block(*args)[0], twin(args[0].float(), *args[1:])[0]
+            else:
+                u, state = args
+                fn16, fn32 = (block.decode, twin.decode) if decode else (block, twin)
+                y16, y32 = fn16(u, state)[0], fn32(u.float(), _upcast_state(state))[0]
+            del twin
+            ratio = float((y16.float() - y32).abs().max() / y32.abs().max())
+            require(bool(torch.isfinite(y16).all()), f"path 12 {what}: {name} is not finite")
+            require(ratio <= tol, f"path 12 {what}: {name}'s bf16 output is {ratio} "
+                    f"of its scale from fp32, tolerance {tol}")
+            worst[kind] = max(worst[kind], ratio)
+    print(f"   [{card}] (e) {what}: every block's bf16 output vs its fp32 upcast on its kept "
+          f"input ({tuple(next(iter(xs.values()))[0].shape)}): Mamba2 max|dy| "
+          f"{worst['mamba']:.5f}, the shared block's attention {worst['attn']:.5f} and MLP "
+          f"{worst['mlp']:.5f} at its {model.n_macro} applications, of the block's max|y| "
+          f"(tolerance {tol:.5f})")
+    return worst
+
+
+def zamba_block_check_on_batch(model, toks, what, card):
+    """``check_zamba_blocks`` on the blocks' inputs of one forward of
+    ``toks``."""
+    caps, remove = zamba_inputs(model, decode=False)
+    caps["on"] = True
+    try:
+        with torch.no_grad():
+            model(toks)
+    finally:
+        remove()
+    return check_zamba_blocks(model, caps["x"], what, card, decode=False)
+
+
+def ssd_ops(cfg, b, s):
+    """fp32 operations of one Mamba2 layer's chunked SSD forward over ``b``
+    x ``s`` tokens: a chunk's C·Bᵀ (2·Q·N a token), the decay-weighted
+    scores times v (2·H·Q·P), the carry-in C·S and the state update Bᵀ·v
+    (2·H·N·P each)."""
+    ssm = cfg.ssm
+    h = ssm.expand * cfg.d_model // ssm.head_dim
+    q = min(ssm.chunk, s)
+    return b * s * (2 * q * ssm.d_state + 2 * h * q * ssm.head_dim
+                    + 4 * h * ssm.d_state * ssm.head_dim)
+
+
+def zamba_prefill_bound_ms(model, b, s):
+    """The least time (ms) of ``prefill`` over ``b`` x ``s`` tokens: the
+    larger of the bytes (every weight but the embedding read once, the
+    cache written once) and the operations: the bf16 products (2 x the
+    parameters outside the embedding and lm_head a token, the lm_head on the
+    last token) at the bf16 rate, and every Mamba2 layer's fp32 SSD
+    (``ssd_ops``) and every shared application's fp32 causal scores and
+    probs·v (4·B·H·hd·S(S+1)/2) at the fp32 rate.  Returns (ms, bound_by,
+    bytes ms, bf16 ms, fp32 ms)."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    weights = sum(p.numel() * p.element_size() for n, p in params.items() if n != "embed")
+    cache = sum(x.numel() * x.element_size() for x in model.cache_shape(b, s).values())
+    body = sum(p.numel() for n, p in params.items() if n not in ("embed", "lm_head"))
+    bf16 = 2 * body * b * s + 2 * cfg.d_model * cfg.vocab * b
+    f32 = (model.n_macro * model.m_per_macro * ssd_ops(cfg, b, s)
+           + model.n_macro * 4 * b * cfg.n_heads * cfg.hd * s * (s + 1) / 2)
+    bytes_ms = (weights + cache) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (bf16 / BF16_FLOPS * 1e3, f32 / F32_FLOPS * 1e3)
+    by = "bytes" if bytes_ms >= sum(ops_ms) else "operations"
+    return (max(bytes_ms, sum(ops_ms)), by, bytes_ms) + ops_ms
+
+
+def zamba_train_bound_ms(model, n_params):
+    """The least time (ms) of one train step of ``TRAIN_BATCH x
+    ZAMBA_TRAIN_SEQ`` tokens: the bf16 products (6 x the parameters outside
+    the embedding gather x tokens) at the bf16 rate; the fp32 SSD of every
+    Mamba2 layer and the shared block's fp32 causal scores and probs·v, x 3
+    with the backward, at the fp32 rate; the optimizer's 28 B a parameter at
+    the HBM rate.  Returns (total, products, SSD and attention, optimizer)."""
+    cfg = model.cfg
+    b, s = TRAIN_BATCH, ZAMBA_TRAIN_SEQ
+    bf16_ops = 6 * (n_params - cfg.vocab * cfg.d_model) * b * s
+    f32_ops = 3 * (model.n_macro * model.m_per_macro * ssd_ops(cfg, b, s)
+                   + model.n_macro * 4 * b * cfg.n_heads * cfg.hd * s * (s + 1) / 2)
+    parts = (bf16_ops / BF16_FLOPS * 1e3, f32_ops / F32_FLOPS * 1e3,
+             28 * n_params / HBM_BYTES_PER_S * 1e3)
+    return (sum(parts),) + parts
+
+
+def phase_zamba_serve(curated, card):
+    """Path 12 (b), (e) on a decode input: zamba2-7b at its full published
+    config behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 32
+    curated tokens and 16 new tokens, against an fp32 twin in lockstep."""
+    cfg = get_config(ZAMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    fp32_leaves = sorted({n.split(".")[-1] for n, p in params.items() if p.dtype == torch.float32})
+    n_macro = round(cfg.n_layers / (cfg.attn_every + 1))
+    require(type(model).__name__ == "ZambaModel" and fp32_leaves == ["a_log", "d_skip", "dt_bias"]
+            and (model.n_macro, model.m_per_macro) == (n_macro, cfg.attn_every),
+            f"path 12: {type(model).__name__}, macros {model.n_macro} x {model.m_per_macro}, "
+            f"fp32 leaves {fp32_leaves}")
+    ssm = cfg.ssm
+    print(f"   {cfg.name}: {model.n_macro} macros of {model.m_per_macro} Mamba2 layers and one "
+          f"application of the shared attention+MLP block ({cfg.n_layers} published layers), "
+          f"d_model {cfg.d_model}, d_in {ssm.expand * cfg.d_model}, "
+          f"{ssm.expand * cfg.d_model // ssm.head_dim} SSM heads of {ssm.head_dim}, d_state "
+          f"{ssm.d_state}, chunk {ssm.chunk}; shared block {cfg.n_heads} heads ({cfg.n_kv_heads} "
+          f"kv) of {cfg.hd}, d_ff {cfg.d_ff}; vocab {cfg.vocab}: {n_params:,} parameters "
+          f"(ArchConfig.num_params estimates {cfg.num_params():,}), {weight_bytes:,} B of "
+          f"weights (fp32 a_log, d_skip, dt_bias), drawn in {build_s:.1f} s")
+    twin = lm_fp32_reference(model)
+    reqs = fixed_requests(curated, ZAMBA_REQUESTS, seed=1)
+    engine, rec, gap = serve_lockstep(model, twin, reqs, zamba_inputs, "path 12")
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = sum(rec["submit_ms"]) / rec["prompt_tokens"]
+    cache_bytes = {key: leaf.numel() * leaf.element_size() for key, leaf in engine.cache.items()}
+    print(f"   [{card}] (b) {ZAMBA_REQUESTS} requests of {FAM_PROMPT} curated tokens, {FAM_NEW} "
+          f"new each, in {rec['run_s']:.1f} s with the fp32 twin beside it: {engine.steps} "
+          f"pooled steps, {engine.prefill_calls} prefill calls; a pooled decode step median "
+          f"{rec['p50']:.2f} ms, p99 {rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at "
+          f"{LM_POOL} slots ({rec['full_steps']} full steps); prefill {prefill_ms:.2f} ms a "
+          f"prompt token; logits vs the fp32 twin in lockstep max|diff| {gap:.4f} (tolerance "
+          f"{ZAMBA_TOL}); the cache's bytes {cache_bytes}; max_memory_allocated {peak:,} B "
+          f"(the twin's included)")
+    require(gap <= ZAMBA_TOL, f"path 12: served logits {gap} from the fp32 twin")
+    step_device_ms, kernels = decode_device_time(model, engine)
+    bound_ms, read, state = state_decode_bound_ms(model, engine)
+    print(f"   [{card}] one pooled decode step on the card (torch.profiler, 3 steps): "
+          f"{step_device_ms:.3f} ms of kernels ({kernels:.0f} launches), busy "
+          f"{step_device_ms / rec['p50']:.1%} of the median step, idle "
+          f"{1 - step_device_ms / rec['p50']:.1%}; bound {bound_ms:.3f} ms (bytes: every weight "
+          f"but the embedding read once, 8 embedding rows, the cache ({state:,} B: SSM states, "
+          f"KV, conv tails) read and written once: {read:,} B)")
+    layers = check_zamba_blocks(model, rec["kept"], "a pooled decode step", card)
+    err, wide, flips, total = fp32_gaps(twin, reqs, rec)
+    print(f"   [{card}] reported, not held: logits vs a fresh fp32 forward of each request's own "
+          f"tokens (a reused slot starts from its predecessor's state, ROADMAP queue 3) "
+          f"max|diff| {err:.4f}; greedy tokens equal to its argmax at {wide - flips} of the "
+          f"{wide} of {total} positions whose top-2 margin exceeds {2 * LM_TOL}")
+    del twin
+    return dict(model=model, zamba_params=n_params, zamba_step_ms_p50=rec["p50"],
+                zamba_step_ms_p99=rec["p99"], zamba_tokens_per_s=rec["tok_s"],
+                zamba_prefill_ms_per_token=prefill_ms, zamba_step_device_ms=step_device_ms,
+                zamba_step_launches=kernels, zamba_step_bound_ms=bound_ms,
+                zamba_serve_peak_bytes=peak, zamba_twin_gap=gap, zamba_decode_layers=layers,
+                zamba_fresh_gap=err, zamba_greedy=(wide - flips, wide), zamba_serve_s=rec["run_s"])
+
+
+def phase_zamba_prefill(model, curated, card):
+    """Path 12 (c): ``prefill`` of 2 x 256 curated tokens against a
+    token-by-token ``decode_step`` chain over the same tokens on a 256-row
+    cache: the last logits within ``ZAMBA_CHAIN_TOL``, every cache leaf
+    (the Mamba2 states and tails, the shared block's k and v) within
+    ``ZAMBA_STATE_TOL`` of its largest |x|; the prefill's time beside its
+    bound."""
+    toks = curated_rows(curated, ZAMBA_PREFILL_B, ZAMBA_PREFILL_S, np.random.default_rng(3))
+    with torch.no_grad():
+        model.prefill({"tokens": toks})  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        chain = model.init_cache(ZAMBA_PREFILL_B, ZAMBA_PREFILL_S)
+        t0 = time.perf_counter()
+        for t in range(ZAMBA_PREFILL_S):
+            last, chain = model.decode_step(chain, {"tokens": toks[:, t:t + 1],
+                                                    "pos": torch.tensor(t, device=model.device)})
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t0) * 1e3 / ZAMBA_PREFILL_S
+    err = float((logits.float() - last.float()).abs().max())
+    require(all(cache[key].shape == chain[key].shape for key in chain),
+            "path 12: prefill's cache is not the chain's shape")
+    states = {key: float((cache[key].float() - chain[key].float()).abs().max()
+                         / chain[key].float().abs().max().clamp(min=1e-30)) for key in cache}
+    worst_key = max(states, key=states.get)
+    bound = zamba_prefill_bound_ms(model, ZAMBA_PREFILL_B, ZAMBA_PREFILL_S)
+    print(f"   [{card}] (c) prefill of {ZAMBA_PREFILL_B} x {ZAMBA_PREFILL_S} curated tokens "
+          f"{prefill_ms:.2f} ms (bound {bound[0]:.2f} ms by {bound[1]}: bytes {bound[2]:.2f}, "
+          f"bf16 products {bound[3]:.2f}, fp32 SSD and attention {bound[4]:.2f}; "
+          f"max_memory_allocated {peak:,} B); the same tokens through {ZAMBA_PREFILL_S} decode "
+          f"steps {chain_ms:.2f} ms a step; last logits max|diff| {err:.4f} (tolerance "
+          f"{ZAMBA_CHAIN_TOL}); the cache within {states[worst_key]:.5f} of each leaf's largest "
+          f"|x| ({worst_key}; tolerance {ZAMBA_STATE_TOL}; all {states})")
+    require(bool(torch.isfinite(logits.float()).all()) and err <= ZAMBA_CHAIN_TOL,
+            f"path 12: prefill's logits {err} from the decode chain's")
+    require(max(states.values()) <= ZAMBA_STATE_TOL,
+            f"path 12: prefill's cache {states} from the decode chain's")
+    return dict(zamba_prefill_ms=prefill_ms, zamba_prefill_bound_ms=bound[0],
+                zamba_prefill_bound_by=bound[1], zamba_prefill_peak_bytes=peak,
+                zamba_chain_ms=chain_ms, zamba_chain_gap=err, zamba_chain_states=states)
+
+
+def phase_zamba_train(curated, card):
+    """Path 12 (d), (e) on a training batch: zamba2-7b's published widths
+    cut to one macro (``ZAMBA_TRAIN_LAYERS``) train ``ZAMBA_STEPS`` steps of
+    8 x 256 curated tokens through ``make_train_step`` (``remat="full"``,
+    lr ``ZAMBA_LR``, warmup 10): the loss falls, every gradient is finite
+    (the reference's SSD backward gives a non-finite ∂la at this length);
+    step median/p99, kernels, the bound, the peak."""
+    cfg = override(get_config(ZAMBA_ARCH), n_layers=ZAMBA_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    require((model.n_macro, model.m_per_macro) == (1, cfg.attn_every),
+            f"path 12 (d): {model.n_macro} macros of {model.m_per_macro}")
+    opt_cfg = optim_module.OptConfig(lr=ZAMBA_LR, warmup_steps=10, total_steps=ZAMBA_STEPS)
+    step_fn = make_train_step(model, opt_cfg)
+    state = optim_module.init_state(dict(model.named_parameters()))
+    rng = np.random.default_rng(1)
+    batches = [curated_rows(curated, TRAIN_BATCH, ZAMBA_TRAIN_SEQ, rng)
+               for _ in range(ZAMBA_STEPS)]
+    served = zamba_block_check_on_batch(model, batches[0], "a training batch, fresh weights",
+                                        card)
+    update, finite = optim_module.update, []
+
+    def checked(cfg_, st, grads, dtypes):
+        finite.append(torch.stack([torch.isfinite(g).all() for g in grads.values()]))
+        if len(finite) == 1:
+            finite.append(list(grads))  # the leaves' names, in the order of the flags
+        return update(cfg_, st, grads, dtypes)
+
+    losses, ms = [], []
+    optim_module.update = checked
+    t_all = time.perf_counter()
+    try:
+        for toks in batches:
+            batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    finally:
+        optim_module.update = update
+    train_s = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    losses_f = [float(x) for x in losses]
+    names = finite.pop(1)
+    flags = torch.stack(finite).cpu().numpy()  # (steps, leaves)
+    all_finite = bool(flags.all())
+    if not all_finite:
+        first = int(np.flatnonzero(~flags.all(axis=1))[0])
+        print(f"   [{card}] (d) step {first}'s gradients are not finite in "
+              f"{[n for n, ok in zip(names, flags[first]) if not ok][:8]}; losses {losses_f}")
+    steps = np.array(ms[1:])  # the first step allocates the state
+    tok_s = TRAIN_BATCH * ZAMBA_TRAIN_SEQ / (np.median(steps) / 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_kernel_ms, step_launches, state = step_device_time(model, state, batch, opt_cfg)
+    bound = zamba_train_bound_ms(model, n_params)
+    print(f"   [{card}] (d) {cfg.name} at its published widths, {model.n_macro} macro of "
+          f"{model.m_per_macro} Mamba2 layers and the shared block ({n_params:,} parameters), "
+          f"remat {cfg.remat!r}: {ZAMBA_STEPS} steps of {TRAIN_BATCH}x{ZAMBA_TRAIN_SEQ} curated "
+          f"tokens in {train_s:.1f} s (lr {ZAMBA_LR}); losses "
+          f"{[round(x, 4) for x in losses_f]}; every gradient finite: {all_finite}")
+    print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; {tok_s:.0f} tokens/s; first step {ms[0]:.1f} ms; "
+          f"one step on the card (torch.profiler, {PROFILED_STEPS} step): "
+          f"{step_kernel_ms:.2f} ms of kernels "
+          f"({step_launches:.0f} launches), busy {step_kernel_ms / np.median(steps):.1%}; bound "
+          f"{bound[0]:.2f} ms (bf16 products {bound[1]:.2f}, fp32 SSD and attention "
+          f"{bound[2]:.2f}, optimizer bytes {bound[3]:.2f}); max_memory_allocated {peak:,} B")
+    require(np.isfinite(losses_f).all() and losses_f[-1] < losses_f[0],
+            f"path 12: loss {losses_f[0]} -> {losses_f[-1]}")
+    require(all_finite, "path 12: a gradient is not finite")
+    trained = zamba_block_check_on_batch(model, batch["tokens"], f"a training batch after "
+                                         f"{ZAMBA_STEPS} steps", card)
+    del state, model
+    return dict(zamba_train_params=n_params, zamba_train_losses=losses_f, zamba_train_s=train_s,
+                zamba_train_step_ms_p50=float(np.median(steps)),
+                zamba_train_step_ms_p99=float(np.percentile(steps, 99)),
+                zamba_train_tokens_per_s=float(tok_s), zamba_train_kernel_ms=step_kernel_ms,
+                zamba_train_launches=step_launches, zamba_train_bound_ms=bound,
+                zamba_train_peak_bytes=peak, zamba_train_layers=served,
+                zamba_trained_layers=trained)
+
+
+def phase_zamba(card):
+    """Path 12: curation on the card over zamba2-7b's vocabulary, then
+    zamba2-7b served and prefilled at its full published config, and one
+    macro of it trained at its published widths.  Every wrapper's count is
+    set to 0 before (a) and read after (d)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # path 11's models are gone
+    reset_launches()
+    out = phase_family_curation(card, get_config(ZAMBA_ARCH).vocab, "path 12")
+    times = {}
+    for part, run in (("b", lambda: phase_zamba_serve(out["curated"], card)),
+                      ("c", lambda: phase_zamba_prefill(out.pop("model"), out["curated"], card)),
+                      ("d", lambda: phase_zamba_train(out["curated"], card))):
+        t0 = time.perf_counter()
+        out.update(run())
+        gc.collect()
+        torch.cuda.empty_cache()
+        times[part] = time.perf_counter() - t0
+        print(f"   ({part}) {times[part]:.1f} s", flush=True)
+    out["part_s"] = times
+    out["launches"] = read_launches()
+    print(f"   path 12 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"]["ell"] == out["sweeps"] and
+            all(n == 0 for key, n in out["launches"].items() if key != "ell"),
+            f"path 12: launches {out['launches']} for {out['sweeps']} sweeps")
     return out
 
 
@@ -4238,7 +4712,7 @@ def main(argv=None) -> int:
     with Phase("path 7b: a fresh 8-shard halo engine, ingest_order='locality'"):
         out7b = phase_mesh_halo(args.vertices, args.batch)
     with Phase(f"path 8: PseudoLabelPipeline, then ServeEngine on {LM_ARCH} at full width"):
-        out8 = phase_lm(args.vertices, card)
+        out8 = phase_lm(min(args.vertices, LM_DOCS), card)
     with Phase(f"path 9: the curated documents train {LM_ARCH} at full width"):
         out9 = phase_train(card)
     with Phase(f"path 10: {MOE_ARCH} serves and trains at full width, {VLM_ARCH} at "
@@ -4246,13 +4720,16 @@ def main(argv=None) -> int:
         out10 = phase_families(card)
     with Phase(f"path 11: {XLSTM_ARCH} serves, prefills and trains at full width"):
         out11 = phase_xlstm(card)
+    with Phase(f"path 12: {ZAMBA_ARCH} serves and prefills at its full config, one macro of it "
+               f"trains"):
+        out12 = phase_zamba(card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
                  path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"],
-                 path10=out10["launches"], path11=out11["launches"])
+                 path10=out10["launches"], path11=out11["launches"], path12=out12["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

@@ -1,7 +1,7 @@
 """Layer blocks: GQA attention, the dense MLP (SwiGLU or GELU), the
-token-choice MoE and xLSTM's mLSTM and sLSTM.
+token-choice MoE, Mamba2 and xLSTM's mLSTM and sLSTM.
 
-Counterpart of the attention, MLP, MoE and xLSTM part of
+Counterpart of the attention, MLP, MoE, Mamba2 and xLSTM part of
 ``repro.models.blocks``.
 The reference's ``<block>_init`` / ``<block>_apply`` pairs over dicts of
 arrays become ``nn.Module``s holding ``nn.Parameter``s under the reference's
@@ -9,8 +9,8 @@ leaf names (``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w1``,
 ``w3``, ``w2``, ``router`` …, weights laid out ``(in, out)`` as there), each
 with a ``forward`` for a whole sequence and, for attention, a ``decode``
 against a KV cache, or, for the recurrent blocks, a ``forward`` that takes
-and returns their state.  The Mamba2 block is a later slice (``ROADMAP.md``
-queue 1, item 10).
+and returns their state (and, for Mamba2 and the mLSTM, a ``decode`` of one
+token).
 """
 
 from __future__ import annotations
@@ -33,7 +33,13 @@ from repro_torch.models.common import (
     rope,
     swiglu,
 )
-from repro_torch.models.ssd import NEG_INF, mlstm_chunked, mlstm_decode_step
+from repro_torch.models.ssd import (
+    NEG_INF,
+    mlstm_chunked,
+    mlstm_decode_step,
+    ssd_chunked,
+    ssd_decode_step,
+)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -278,7 +284,7 @@ def _expert_mm(a, w):
 
 
 # --------------------------------------------------------------------- #
-# xLSTM: the causal conv, mLSTM and sLSTM
+# the causal conv (Mamba2 and the mLSTM), Mamba2
 # --------------------------------------------------------------------- #
 def _causal_conv(x, w, b, hist=None):
     """Depthwise causal conv; x ``(B, S, C)``, w ``(W, C)``; ``hist``
@@ -295,6 +301,97 @@ def _causal_conv(x, w, b, hist=None):
     return out + b, ext[:, -(wsz - 1):, :]
 
 
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Mamba2(nn.Module):
+    """Mamba2 (``mamba_init``/``mamba_apply``/``mamba_decode``): the input
+    projections ``wz``, ``wx``, ``wbc`` (B and C, shared across heads) and
+    ``wdt``; a depthwise causal conv on x (``conv_x``, ``conv_x_b``) and on
+    B, C (``conv_bc``, ``conv_bc_b``), each with its own tail; the fp32
+    ``a_log`` (A = -exp(a_log)), ``d_skip`` and ``dt_bias``; the SSD core;
+    a gated RMS ``norm`` and ``out_proj``.  Its state is (the x tail, the
+    B/C tail, both bf16; the SSM state ``(B, H, N, P)``, fp32)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        d_in, h, n, _, cw = self.dims()
+        self.wz = _param(dense_init(gen, (d, d_in)))
+        self.wx = _param(dense_init(gen, (d, d_in)))
+        self.wbc = _param(dense_init(gen, (d, 2 * n)))
+        self.wdt = _param(dense_init(gen, (d, h)))
+        self.conv_x = _param(dense_init(gen, (cw, d_in), scale=1.0 / math.sqrt(cw)))
+        self.conv_x_b = _zeros(d_in, gen)
+        self.conv_bc = _param(dense_init(gen, (cw, 2 * n), scale=1.0 / math.sqrt(cw)))
+        self.conv_bc_b = _zeros(2 * n, gen)
+        f32 = dict(dtype=torch.float32, device=gen.device)
+        self.a_log = _param(torch.zeros(h, **f32))  # A = -exp(a_log) = -1
+        self.d_skip = _param(torch.ones(h, **f32))
+        self.dt_bias = _param(torch.zeros(h, **f32))
+        self.norm = _ones(d_in, gen)
+        self.out_proj = _param(dense_init(gen, (d_in, d)))
+
+    def dims(self):
+        """(d_in, heads, d_state, head dim, conv width): ``_mamba_dims``."""
+        ssm = self.cfg.ssm
+        d_in = ssm.expand * self.cfg.d_model
+        return d_in, d_in // ssm.head_dim, ssm.d_state, ssm.head_dim, ssm.conv_width
+
+    def _inputs(self, x, dt, dtype):
+        """(la, v): the log decay ``-exp(a_log)·dt`` and the dt-scaled
+        inputs in ``dtype``, from ``dt = softplus(u·wdt + dt_bias)`` in
+        fp32."""
+        dt = _softplus(dt.float() + self.dt_bias)
+        v = (x.reshape(*dt.shape, -1).float() * dt[..., None]).to(dtype)
+        return -torch.exp(self.a_log) * dt, v
+
+    def _out(self, y, x, z, u):
+        """The skip ``d_skip·x``, the gated norm and ``out_proj``."""
+        y = y + self.d_skip[:, None] * x.reshape(y.shape)
+        y = rms_norm(y.reshape(*u.shape[:-1], -1), self.norm, self.cfg.norm_eps) * F.silu(z)
+        return mm(y, self.out_proj).to(u.dtype)
+
+    def forward(self, u, state=None):
+        """The whole sequence ``u`` ``(B, S, D)`` through the chunked core
+        from ``state`` (None: zeros); returns (y, (x tail, B/C tail, SSM
+        state))."""
+        n = self.cfg.ssm.d_state
+        z, x_raw, bc_raw, dt = (mm(u, w) for w in (self.wz, self.wx, self.wbc, self.wdt))
+        x_c, tail_x = _causal_conv(x_raw, self.conv_x, self.conv_x_b,
+                                   hist=None if state is None else state[0])
+        bc_c, tail_bc = _causal_conv(bc_raw, self.conv_bc, self.conv_bc_b,
+                                     hist=None if state is None else state[1])
+        x, bc = F.silu(x_c), F.silu(bc_c)
+        la, v = self._inputs(x, dt, u.dtype)
+        y, ssm = ssd_chunked(la, bc[..., n:], bc[..., :n], v,
+                             s0=None if state is None else state[2], chunk=self.cfg.ssm.chunk)
+        return self._out(y, x, z, u), (tail_x.to(torch.bfloat16), tail_bc.to(torch.bfloat16), ssm)
+
+    def decode(self, u, state):
+        """One token ``u`` ``(B, 1, D)`` through the one-step recurrence
+        (``mamba_decode``: the conv as a product over the window, which
+        rounds otherwise than ``_causal_conv`` in bf16); returns (y, the new
+        state)."""
+        n = self.cfg.ssm.d_state
+        tail_x, tail_bc, ssm = state
+        z, x_raw, bc_raw, dt = (mm(u, w) for w in (self.wz, self.wx, self.wbc, self.wdt))
+        win_x = torch.cat([tail_x.to(x_raw.dtype), x_raw], dim=1)  # (B, cw, C)
+        win_bc = torch.cat([tail_bc.to(bc_raw.dtype), bc_raw], dim=1)
+        x = F.silu(torch.einsum("bwc,wc->bc", win_x, self.conv_x) + self.conv_x_b)
+        bc = F.silu(torch.einsum("bwc,wc->bc", win_bc, self.conv_bc) + self.conv_bc_b)
+        la, v = self._inputs(x, dt[:, 0], u.dtype)
+        y, ssm = ssd_decode_step(la, bc[..., n:], bc[..., :n], v, ssm)
+        return self._out(y, x, z, u), (win_x[:, 1:].to(torch.bfloat16),
+                                       win_bc[:, 1:].to(torch.bfloat16), ssm)
+
+
+# --------------------------------------------------------------------- #
+# xLSTM: mLSTM and sLSTM
+# --------------------------------------------------------------------- #
 class MLSTM(nn.Module):
     """xLSTM's matrix-memory block (``mlstm_init``/``mlstm_apply``/
     ``mlstm_decode``): up-projections ``wx_up`` and ``wz_up``, a causal conv

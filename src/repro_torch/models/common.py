@@ -358,12 +358,12 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16, scale=None) ->
 
 
 # the ROADMAP.md queue 1 item that ports each family not yet in the port
-NOT_PORTED = {"hybrid": 10, "audio": 10}
+NOT_PORTED = {"audio": 10}
 
 
 def not_ported(cfg: ArchConfig) -> NotImplementedError:
     """The error for a config whose family the port does not build yet, or
-    (ported, as ``ssm``) that another model class builds."""
+    (ported, as ``ssm`` and ``hybrid``) that another model class builds."""
     if cfg.family not in NOT_PORTED:
         return NotImplementedError(
             f"{cfg.name}: TransformerLM does not build the {cfg.family!r} family; "

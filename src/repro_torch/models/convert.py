@@ -2,15 +2,18 @@
 back.
 
 ``lm_params_from_jax(model, tree)`` loads the tree that the reference's
-``init(key)`` returns, as numpy arrays, into a port ``TransformerLM`` or
-``XLSTMModel``: the same leaf names, each index in a module parameter's
-name (``layers.<l>``; ``macros.<i>.mlstm.<j>``) indexing the next stacked
-axis of the reference's leaf; ``lm_params_to_tree`` stacks them back.
+``init(key)`` returns, as numpy arrays, into a port ``TransformerLM``,
+``XLSTMModel`` or ``ZambaModel``: the same leaf names, each index in a
+module parameter's name (``layers.<l>``; ``macros.<i>.mlstm.<j>``,
+``macros.<i>.mamba.<j>``) indexing the next stacked axis of the
+reference's leaf, and a name without one (Zamba2's ``shared.attn.wq``) its
+unstacked leaf; ``lm_params_to_tree`` stacks them back.
 ``opt_state_from_jax``/``opt_state_to_tree`` do the same for
 ``training.optim``'s ``master``/``m``/``v``/``step``.  The trees are what
 ``checkpoint.manager`` writes in the reference's layout, so a training
 checkpoint of either package resumes in the other.  ``cache_from_jax``/
-``cache_to_tree`` carry a recurrent model's nested cache tree across.
+``cache_to_tree`` carry a recurrent model's nested cache tree (tuples and
+dicts: Zamba2's ``attn_kv``) across.
 Numpy and tensors only: the port never imports jax or ``ml_dtypes``.
 """
 

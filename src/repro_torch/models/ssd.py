@@ -1,17 +1,24 @@
-"""Chunked linear-attention core of xLSTM's mLSTM.
+"""Chunked state-space / linear-attention cores: Mamba2's SSD and xLSTM's
+mLSTM.
 
-Counterpart of the mLSTM part of ``repro.models.ssd``: the decayed
-outer-product recurrence with exponential input gates
+Counterpart of ``repro.models.ssd``.  Both share a decayed outer-product
+recurrence
+
+    S_t = a_t · S_{t-1} + b_t · (k_t ⊗ v_t),     y_t = q_t · S_t
+
+in a chunked form (an intra-chunk masked product plus the state carried
+across chunks, all in fp32) and as a one-token step.  ``ssd_chunked`` is
+Mamba2's (decay a ∈ (0, 1], no normalizer, no stabilizer);
+``mlstm_chunked`` is the mLSTM's with exponential input gates
 
     C_t = f_t C_{t-1} + i_t k_t v_tᵀ,   n_t = f_t n_{t-1} + i_t k_t,
     y_t = (q_tᵀ C_t) / max(|q_tᵀ n_t|, 1),
 
-in its stabilized chunked form (an intra-chunk masked product plus the
-carried state, all in fp32) and as a one-token step.  The reference scans
-the chunks with ``lax.scan`` over ``jax.checkpoint(step)``; here they are a
-Python loop, and the per-chunk checkpoint, which only saves memory, is
-left out.  Mamba2's ``ssd_chunked`` and ``ssd_decode_step`` come with the
-hybrid family (``ROADMAP.md`` queue 1, item 10).
+in its stabilized form.  The reference scans the chunks with ``lax.scan``
+over ``jax.checkpoint(step)``; here they are a Python loop, and the
+per-chunk checkpoint, which only saves memory, is left out: a model's
+remat of each macro-block already bounds what its backward keeps.  Both
+return the final state, so a prefill seeds decoding.
 """
 
 from __future__ import annotations
@@ -34,6 +41,63 @@ def _exp_neg(m):
     e = torch.exp(-m)
     big = torch.isinf(e)
     return torch.where(big, e.detach(), torch.exp(torch.where(big, 0.0, -m)))
+
+
+def ssd_chunked(la, q, k, v, s0=None, chunk: int = 256):
+    """Mamba2's SSD in chunks of ``chunk`` tokens.
+
+    ``la``: ``(B, S, H)`` log decay per token (<= 0); ``q`` (C_t), ``k``
+    (B_t): ``(B, S, N)``, shared across heads; ``v``: ``(B, S, H, P)``, the
+    dt-scaled inputs; ``s0``: ``(B, H, N, P)`` fp32 initial state (None:
+    zeros).  Returns (y ``(B, S, H, P)`` in ``v``'s dtype, the final state).
+    The reference's op order, in fp32: the inclusive cumsum ``L`` of
+    ``la`` a chunk, ``exp(L_j - L_s)`` for s <= j inside it, ``exp(L_j)``
+    on the carried state, ``exp(L_Q - L_s)`` into the state at the chunk's
+    end.  The forward gives the reference's values; its backward is the
+    reference's wherever that is finite, and finite where the reference's
+    is not: past a cumulative decay of about -88.7 in a chunk the masked
+    pairs' ``exp(L_j - L_s)`` (s > j) overflow to infinity, which the
+    reference's backward multiplies by a zero gradient.
+    """
+    b, s, h = la.shape
+    n, p = q.shape[-1], v.shape[-1]
+    cq = min(chunk, s)
+    assert s % cq == 0, (s, cq)
+    dev = la.device
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev) if s0 is None else s0
+    idx = torch.arange(cq, device=dev)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]  # j >= s
+    ys = []
+    for c0 in range(0, s, cq):
+        la_b = la[:, c0:c0 + cq].float()
+        q_b, k_b, v_b = q[:, c0:c0 + cq].float(), k[:, c0:c0 + cq].float(), v[:, c0:c0 + cq].float()
+        lcum = torch.cumsum(la_b, dim=1)  # (B,Q,H), inclusive
+        diff = lcum[:, :, None, :] - lcum[:, None, :, :]  # (B,Q,Q,H): L_j - L_s
+        # the masked (s > j) exponents are positive and may overflow: mask
+        # them before the exp, then zero them (the reference's values)
+        w = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        qk = torch.einsum("bjn,bsn->bjs", q_b, k_b)
+        y_intra = torch.einsum("bjsh,bshp->bjhp", qk[:, :, :, None] * w, v_b)
+        # inter-chunk: y_j += exp(L_j) q_j · S_prev
+        qdec = q_b[:, :, None, :] * torch.exp(lcum)[..., None]  # (B,Q,H,N)
+        y_inter = torch.einsum("bjhn,bhnp->bjhp", qdec, state)
+        ys.append((y_intra + y_inter).to(v.dtype))
+        # state update: S = exp(L_Q) S_prev + sum_s exp(L_Q - L_s) k_s v_s
+        ltot = lcum[:, -1, :]  # (B,H)
+        kdec = k_b[:, :, None, :] * torch.exp(ltot[:, None, :] - lcum)[..., None]  # (B,Q,H,N)
+        state = state * torch.exp(ltot)[:, :, None, None] + torch.einsum(
+            "bshn,bshp->bhnp", kdec, v_b)
+    return torch.cat(ys, dim=1), state
+
+
+def ssd_decode_step(la, q, k, v, state):
+    """One token of Mamba2's recurrence: ``la`` ``(B, H)``, ``q``, ``k``
+    ``(B, N)``, ``v`` ``(B, H, P)``, ``state`` ``(B, H, N, P)`` fp32;
+    returns (y ``(B, H, P)`` in ``v``'s dtype, the new state)."""
+    a = torch.exp(la.float())[:, :, None, None]
+    new_state = a * state + torch.einsum("bn,bhp->bhnp", k.float(), v.float())
+    y = torch.einsum("bn,bhnp->bhp", q.float(), new_state)
+    return y.to(v.dtype), new_state
 
 
 def mlstm_chunked(lf, li, q, k, v, state=None, chunk: int = 256):

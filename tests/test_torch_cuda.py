@@ -1008,3 +1008,78 @@ def test_xlstm_remat_changes_no_gradient_on_the_card(card):
     assert torch.equal(lf, ln)
     for name, a, b in zip(names, gf, gn):
         assert torch.equal(a, b), name
+
+
+# --------------------------------------------------------------------- #
+# the hybrid family (Zamba2) on the card
+# --------------------------------------------------------------------- #
+def _grown(model, cache, s_max):
+    """A prefill's cache in a cache of ``s_max`` rows: its k and v in the
+    first rows, the Mamba2 states as they are."""
+    out = model.init_cache(cache["mamba_ssm"].shape[2], s_max)
+    for key, leaf in cache.items():
+        if key.startswith("attn"):
+            out[key][:, :, :leaf.shape[2]] = leaf
+        else:
+            out[key] = leaf
+    return out
+
+
+def test_zamba_decode_on_the_card_matches_the_cpu(card):
+    """zamba2-7b's smoke config: ``prefill`` of 16 tokens, then 20
+    ``decode_step``s on a 32-row cache, the positions a per-slot vector
+    (slot 1 lagging) and past the cache's end for slot 0 (its writes
+    dropped), on the card against the CPU on the same weights: logits within
+    0.25 and every cache leaf within 2^-4 of its largest |x|, the bf16
+    bounds that ``tests/test_torch_zamba.py`` holds the port to the
+    reference with (the two devices round the bf16 products and their sums
+    in different orders, and the recurrent states carry it on)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_smoke_config("zamba2_7b")
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    with torch.no_grad():
+        got = gpu.prefill({"tokens": toks[:, :16].to(card)})
+        want = cpu.prefill({"tokens": toks[:, :16]})
+        assert (got[0].float().cpu() - want[0].float()).abs().max() <= 0.25
+        caches = [_grown(gpu, got[1], 32), _grown(cpu, want[1], 32)]
+        for t in range(16, 36):
+            pos = torch.tensor([t, 8 + t // 2])
+            g, caches[0] = gpu.decode_step(caches[0], {"tokens": toks[:, t:t + 1].to(card),
+                                                       "pos": pos.to(card)})
+            c, caches[1] = cpu.decode_step(caches[1], {"tokens": toks[:, t:t + 1], "pos": pos})
+            assert torch.isfinite(g.float()).all()
+            assert (g.float().cpu() - c.float()).abs().max() <= 0.25, t
+    torch.cuda.synchronize()
+    for key in caches[1]:
+        want = caches[1][key].float()
+        assert caches[0][key].dtype == caches[1][key].dtype, key
+        gap = (caches[0][key].float().cpu() - want).abs().max()
+        assert gap <= 2.0 ** -4 * want.abs().max(), key
+
+
+def test_zamba_remat_changes_no_gradient_on_the_card(card):
+    """``remat="full"`` (each macro, its application of the shared block
+    included, checkpointed) against ``"none"`` on the card at zamba2-7b's
+    smoke config: the loss and every gradient bit for bit."""
+    from repro_torch.configs.registry import get_smoke_config, override
+    from repro_torch.models.api import build_model
+
+    runs = []
+    for remat in ("full", "none"):
+        cfg = override(get_smoke_config("zamba2_7b"), remat=remat)
+        model = build_model(cfg, device=card)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        batch = _family_batch(cfg, card, seed=5)
+        loss, _ = model.loss(batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, list(params.values())), list(params)))
+    (lf, gf, names), (ln, gn, _) = runs
+    assert torch.equal(lf, ln)
+    for name, a, b in zip(names, gf, gn):
+        assert torch.equal(a, b), name

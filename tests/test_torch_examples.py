@@ -4,8 +4,9 @@ against the ground truth ≥ 0.99, as the reference's quickstart reaches,
 and agreement with the harmonic optimum > 0.97), ``torch_dynamic_stream.py``
 (its four parts, the 8-shard mesh on the CPU included),
 ``torch_serve_lp.py``, ``torch_serve_lm.py`` (qwen3-0.6b's smoke config,
-h2o-danube-3-4b's, whose cache is a ring buffer, and xlstm-350m's, whose
-cache holds recurrent states) and
+h2o-danube-3-4b's, whose cache is a ring buffer, xlstm-350m's, whose
+cache holds recurrent states, and zamba2-7b's, whose cache holds Mamba2
+states beside the shared block's k and v) and
 ``torch_semi_supervised_lm.py`` (curation, then 30 training steps of the
 smoke config: pseudo-label quality and purity > 0.9, last loss < first)."""
 
@@ -54,7 +55,7 @@ def test_serve_lp():
     assert ex.async_driver_demo("cpu").deadline_admissions >= 1
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b", "xlstm-350m", "zamba2-7b"])
 def test_serve_lm(arch):
     engine, done = _load("torch_serve_lm").main("cpu", arch=arch)
     assert len(done) == 6 and engine.steps > 0
