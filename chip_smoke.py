@@ -170,15 +170,16 @@ Phases (each prints its lines and its seconds; any failed check raises):
    exceed 0.9.  (b) ``build_model(get_config("qwen3-0.6b"))`` at its full
    published config (28 layers, d_model 1024, GQA 16/8, head_dim 128,
    qk-norm, vocab 151,936; bf16 weights from a seeded generator) behind
-   ``ServeEngine(max_batch=8, s_max=256)``: 16 requests (24 formerly)
-   whose prompts are
+   ``ServeEngine(max_batch=8, s_max=256)``: 8 requests (24 before PR 23,
+   16 before PR 24) whose prompts are
    16–64-token prefixes of curated documents, ``max_new`` 16–64.  Every
    request finishes with its ``max_new`` tokens; the logits at every
    generated position agree with the plain fp32 forward (the same weights
    upcast, dense attention, no cache, no TF32, teacher-forced over prompt
    and output) within ``LM_TOL``, the greedy tokens equal its argmax
    wherever its top-2 margin exceeds twice that, and the same serving with
-   the KV cache rounded through fp8 (8 requests) must FAIL the tolerance.
+   the KV cache rounded through fp8 (the same 8 requests) must FAIL the
+   tolerance.
    It prints the pooled decode step's median and p99 ms, tokens a second
    at 8 slots, prefill ms a prompt token, a decode step's kernel time from
    ``torch.profiler`` beside its bound, the bytes of weights and cache and
@@ -223,8 +224,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    "granite-moe-1b-a400m"))`` at its full published config (24 layers,
    d_model 1024, GQA 16/8, 32 experts top-8, d_expert 512, vocab 49,155;
    bf16 weights and fp32 routers from a seeded generator) behind
-   ``ServeEngine(max_batch=8, s_max=256)``: 8 requests of 32 curated
-   tokens, 16 new tokens each.  On the first pooled step with every slot
+   ``ServeEngine(max_batch=8, s_max=256)``: 8 requests of 16 curated
+   tokens (32 before PR 24), 16 new tokens each.  On the first pooled step with every slot
    busy each MoE layer's bf16 input is kept, and the bf16 block is held to
    its fp32 upcast on it (the same top-k and aux, the outputs within
    ``MOE_TOL``); the dispatch's drops are counted.  It prints the pooled
@@ -243,7 +244,7 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``loss`` and the forward of one multimodal 2 x 256 batch of
    ``launch/specs.make_batch`` (64 patch embeddings, 192 text tokens,
    ``pos3``) within ``LM_TOL`` of the fp32 forward; then ``ServeEngine``
-   serves 8 text prompts of 32 curated tokens (1-D RoPE, as the
+   serves 8 text prompts of 16 curated tokens (1-D RoPE, as the
    reference's engine), every generated position within ``LM_TOL``.
    Path 10 runs no kernel but the sweep.
 16. Path 11, the ssm family.  (a) The same curation over xlstm-350m's
@@ -253,8 +254,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    mLSTM and 1 sLSTM, d_model 1024, 4 heads, proj_factor 2, conv_width 4,
    chunk 256, vocab 50,304; 524,142,760 parameters, bf16 but the fp32
    gates, nothing cut) behind ``ServeEngine(max_batch=8, s_max=256)``: 8
-   requests (16 formerly) of 32 curated tokens, 16 new each, beside an
-   fp32 twin driven
+   requests (16 before PR 23) of 16 curated tokens (32 before PR 24), 16
+   new each, beside an fp32 twin driven
    in lockstep (the same calls, tokens and slot adoptions, its own cache):
    every served logit within ``XLSTM_TOL`` of the twin's; the pooled step's
    median and p99 ms, tokens a second, kernel time and launches from
@@ -262,8 +263,8 @@ Phases (each prints its lines and its seconds; any failed check raises):
    recurrent state read and written once), the peak; reported, not held,
    the gap to a fresh fp32 forward of each request's own tokens (a reused
    slot starts from its predecessor's state, as in the reference).  (c)
-   ``prefill`` of 2 x 256 curated tokens against a token-by-token
-   ``decode_step`` chain over them: the last logits within
+   ``prefill`` of 2 x 128 curated tokens (2 x 256 before PR 24) against a
+   token-by-token ``decode_step`` chain over them: the last logits within
    ``XLSTM_CHAIN_TOL``, every state leaf within ``XLSTM_STATE_TOL`` of its
    largest |x|.  (d) 30 train steps of 8 x 64 curated tokens through
    ``make_train_step``: the last loss below the first, every gradient
@@ -281,13 +282,14 @@ Phases (each prints its lines and its seconds; any failed check raises):
    the shared block 32 heads of 112, d_ff 14,336; vocab 32,000;
    6,049,328,256 parameters, bf16 but the fp32 ``a_log``, ``d_skip`` and
    ``dt_bias``, nothing cut) behind ``ServeEngine(max_batch=8,
-   s_max=256)``: 8 requests of 32 curated tokens, 16 new each, beside an
-   fp32 twin driven in lockstep: every served logit within ``ZAMBA_TOL`` of
+   s_max=256)``: 8 requests of 16 curated tokens (32 before PR 24), 16 new
+   each, beside an fp32 twin driven in lockstep: every served logit within
+   ``ZAMBA_TOL`` of
    the twin's; the pooled step's median and p99 ms, tokens a second,
    kernel time, launches and idle share from ``torch.profiler`` beside its
    bound (the bf16 weights, the fp32 SSM states, the KV and the conv tails
-   read and written once), the peak.  (c) ``prefill`` of 2 x 256 curated
-   tokens (one SSD chunk) beside its bound, against a token-by-token
+   read and written once), the peak.  (c) ``prefill`` of 2 x 128 curated
+   tokens (half an SSD chunk; 2 x 256 before PR 24) beside its bound, against a token-by-token
    ``decode_step`` chain over them: the last logits within
    ``ZAMBA_CHAIN_TOL``, every cache leaf within ``ZAMBA_STATE_TOL`` of its
    largest |x|.  (d) The published widths cut to one macro
@@ -299,6 +301,35 @@ Phases (each prints its lines and its seconds; any failed check raises):
    (d), each Mamba2 layer's and the shared attention's and MLP's bf16
    output within ``ZAMBA_LAYER_TOL`` of its fp32 upcast on the same input.
    Path 12 runs no kernel but the sweep.
+18. Path 13, the audio family.  (a) The same curation over whisper-medium's
+   vocabulary (51,865), every sweep held bitwise, sweep launches equal to
+   the sweeps, the other kernels 0.  (b) ``build_model(get_config(
+   "whisper-medium"))`` at its full published config (24 encoder and 24
+   decoder layers, d_model 1,024, 16 heads, d_ff 4,096, vocab 51,865,
+   frontend_dim 1,024; 812,576,768 parameters of bf16, nothing cut)
+   transcribes 8 windows of 1,500 frames (30 s of audio after Whisper's
+   stride-2 conv stem; seeded bf16 normals, the reference's frontend is a
+   stub): ``prefill`` (encode, every decoder layer's cross k and v, token
+   0) beside its bound, then ``WHISPER_DECODE`` greedy ``decode_step``s
+   from its cache beside an fp32 twin driven in lockstep (the chain's
+   logits within ``WHISPER_TWIN_TOL``), then one teacher-forced decoder
+   forward of the same tokens over the same encoding (within
+   ``WHISPER_FORCED_TOL``); decode step p50/p99, kernel time and launches
+   from ``torch.profiler``, the idle share and the byte bound, the cache's
+   bytes.  (c) ``ServeEngine(8, 256)`` serves 8 requests of 8 curated
+   tokens, 16 new each, with its own enc-dec cache, whose cross memory
+   stays ``init_cache``'s zeros (the reference's engine); every served
+   logit within ``WHISPER_SERVE_TOL`` of the fp32 twin's teacher-forced
+   decoder over a zero memory; tokens a second, step p50/p99.  (d) The
+   served model trains ``WHISPER_STEPS`` steps of 8 rows of 1,500 frames
+   and 187 curated tokens (``s // DEC_FRAC``) through ``make_train_step``
+   (``remat="full"``, lr ``WHISPER_LR``): the last loss below the first,
+   every gradient finite; step median/p99, kernels, the bound, the peak.
+   (e) Every encoder layer's attention and MLP and every decoder layer's
+   self-attention, cross-attention and MLP, on its kept bf16 input (the
+   prefill's encoder and one decode step; one training batch), within
+   ``WHISPER_LAYER_TOL`` of its fp32 upcast on the same input.  Path 13
+   runs no kernel but the sweep.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -375,6 +406,7 @@ from repro_torch.launch.train import checkpoint_tree, restore_into  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.common import ShapeSpec  # noqa: E402
 from repro_torch.models.convert import lm_params_to_tree, to_tree  # noqa: E402
+from repro_torch.models.encdec import DEC_FRAC  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
 from repro_torch.serving.lp_service import LPService  # noqa: E402
@@ -2669,10 +2701,10 @@ LM_WAVES, LM_SEQ = 4, 64  # path 8's documents: 4 waves of 64-token documents
 # the script with path 12 stays inside its time limit: the host graph update
 # of its last waves took ~30 s)
 LM_DOCS = 10_000
-# 16 requests (two pool loads; 24 formerly, cut so the script with path
-# 12 stays inside its time limit)
-LM_REQUESTS, LM_POOL, LM_S_MAX = 16, 8, 256
-LM_CONTROL_REQUESTS = 8  # the fp8-cache control serves the first pool load again
+# 8 requests, one pool load (24 before PR 23, 16 before PR 24: cut so the
+# script with paths 12 and 13 stays inside its time limit)
+LM_REQUESTS, LM_POOL, LM_S_MAX = 8, 8, 256
+LM_CONTROL_REQUESTS = 8  # the fp8-cache control serves the same pool load again
 LM_LONG, LM_LONG_DECODE = 4096, 16  # (c): the chunked prefill, then decoding through it
 # The engine's bf16 logits against the plain fp32 forward of the same weights,
 # max |diff| over every logit of every generated position.  Both use the same
@@ -2900,17 +2932,27 @@ def decode_device_time(model, engine, reps=3):
     on the engine's cache, from ``torch.profiler`` over ``reps`` steps."""
     batch = {"tokens": torch.zeros((engine.b, 1), dtype=torch.int64, device=model.device),
              "pos": torch.as_tensor(engine.pos, device=model.device)}
-    model.decode_step(engine.cache, batch)
+    return profile_kernels(lambda: model.decode_step(engine.cache, batch), reps, "decode")
+
+
+def profile_kernels(fn, reps, what, top=0):
+    """Kernel time (ms) and kernel launches of ``fn``, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up call; prints
+    the ``top`` kernels by time, with their launches and share."""
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            model.decode_step(engine.cache, batch)
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(kernels, "path 8: the profiler saw no kernel")
-    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
-            sum(e.count for e in kernels) / reps)
+    require(kernels, f"{what}: the profiler saw no kernel")
+    total = sum(e.self_device_time_total for e in kernels)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"     {e.self_device_time_total / reps / 1e3:9.3f} ms {e.count / reps:6.0f}x "
+              f"{e.self_device_time_total / total:6.1%}  {e.key[:90]}")
+    return total / reps / 1e3, sum(e.count for e in kernels) / reps
 
 
 def phase_long_prefill(model, ref, curated, card):
@@ -3079,22 +3121,15 @@ def train_bound_ms(cfg, n_params, n_active=None):
 PROFILED_STEPS = 1
 
 
-def step_device_time(model, state, batch, opt_cfg, reps=PROFILED_STEPS):
+def step_device_time(model, state, batch, opt_cfg, reps=PROFILED_STEPS, top=0):
     """Kernel time (ms) and kernel launches of one train step, from
-    ``torch.profiler`` over ``reps`` steps after a warm-up; returns the
-    state after them."""
-    step = make_train_step(model, opt_cfg)
-    state, _, _ = step(state, batch)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            state, _, _ = step(state, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(kernels, "path 9: the profiler saw no kernel")
-    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
-            sum(e.count for e in kernels) / reps, state)
+    ``torch.profiler`` over ``reps`` steps after a warm-up (the ``top``
+    kernels printed); returns the state after them."""
+    step, box = make_train_step(model, opt_cfg), [state]
+
+    def run():
+        box[0] = step(box[0], batch)[0]
+    return profile_kernels(run, reps, "train step", top) + (box[0],)
 
 
 def model_from(cfg, weights, dtype):
@@ -3430,8 +3465,10 @@ MOE_ARCH = "granite-moe-1b-a400m"  # full published config (configs/granite_moe_
 VLM_ARCH = "qwen2-vl-72b"  # every width of configs/qwen2_vl_72b.py, cut to VLM_LAYERS layers
 VLM_LAYERS = 4  # its 80 layers are 145 GB of bf16 weights; 4 keep every width in 12 GB
 # paths 10 (b) and 11 (b) serve 8 requests, one pool load (path 10 (b) and
-# path 11 (b) formerly 16 each, cut for the script's time limit)
-FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 8, 8, 32, 16
+# path 11 (b) formerly 16 each, cut for the script's time limit); the
+# prompts of paths 10-12 are 16 curated tokens (32 before PR 24, cut so the
+# script with path 13 stays inside its time limit)
+FAM_REQUESTS, VLM_REQUESTS, FAM_PROMPT, FAM_NEW = 8, 8, 16, 16
 # train steps of TRAIN_BATCH x TRAIN_SEQ curated tokens: path 10 (c) 20 (30
 # formerly, cut for the script's time limit), path 11 (d) 30 (its loss
 # falls by 0.005 over 30 steps at lr 3e-3: fewer steps are not held to fall)
@@ -3539,11 +3576,11 @@ def phase_family_curation(card, vocab=None, path="path 10"):
                 purity=cur["purity"], curate_s=curate_s, sweep_err=err)
 
 
-def fixed_requests(curated, n, seed):
-    """``n`` requests, each the first ``FAM_PROMPT`` tokens of a curated
+def fixed_requests(curated, n, seed, prompt=FAM_PROMPT):
+    """``n`` requests, each the first ``prompt`` tokens of a curated
     document and ``FAM_NEW`` new tokens."""
     docs = np.random.default_rng(seed).choice(len(curated), n, replace=False)
-    return [Request(uid=i, prompt=curated[d][:FAM_PROMPT].copy(), max_new=FAM_NEW)
+    return [Request(uid=i, prompt=curated[d][:prompt].copy(), max_new=FAM_NEW)
             for i, d in enumerate(docs)]
 
 
@@ -3555,7 +3592,7 @@ def curated_rows(curated, b, s, rng):
     return torch.as_tensor(curated[docs].reshape(b, s), dtype=torch.int64, device="cuda")
 
 
-def serve_recorded(model, reqs):
+def serve_recorded(model, reqs, path="path 10"):
     """``reqs`` through a fresh ``ServeEngine(max_batch=8, s_max=256)``,
     recorded as path 8 records it; every MoE layer's input is kept on the
     first pooled step with every slot busy."""
@@ -3579,7 +3616,7 @@ def serve_recorded(model, reqs):
         remove()
     rec["run_s"] = time.perf_counter() - t0
     require(len(done) == len(reqs) and all(len(r.out) == r.max_new for r in reqs),
-            f"path 10: {len(done)} of {len(reqs)} requests finished with their max_new tokens")
+            f"{path}: {len(done)} of {len(reqs)} requests finished with their max_new tokens")
     steps, full = np.array(rec["step_ms"]), np.array(rec["active"]) == LM_POOL
     rec.update(p50=float(np.median(steps)), p99=float(np.percentile(steps, 99)),
                tok_s=float(LM_POOL * full.sum() / (steps[full].sum() / 1e3)),
@@ -3611,7 +3648,7 @@ def fp32_gaps(ref, reqs, rec, prefix=None):
 
 def phase_moe_serve(curated, card):
     """Path 10 (b): granite-moe-1b-a400m at its full published config
-    behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 32
+    behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 16
     curated tokens and 16 new tokens; every MoE layer held to its fp32
     upcast on one pooled decode step; the whole model's gap to the fp32
     forward reported."""
@@ -3758,7 +3795,7 @@ def phase_vlm(curated, card):
     layers: ``prefill`` and ``loss`` of one multimodal batch of 2 x 256
     (``launch/specs.make_batch``: 64 patch embeddings, 192 text tokens,
     ``pos3``) held within ``LM_TOL`` of the fp32 forward; then
-    ``ServeEngine`` serves 8 text prompts of 32 curated tokens (no
+    ``ServeEngine`` serves 8 text prompts of 16 curated tokens (no
     ``pos3``: 1-D RoPE, as the reference's engine), held the same way."""
     cfg = override(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
@@ -3854,9 +3891,12 @@ def phase_families(card):
 
 
 XLSTM_ARCH = "xlstm-350m"  # full published config (configs/xlstm_350m.py), nothing cut
-XLSTM_PREFILL_B, XLSTM_PREFILL_S = 2, 256  # (c): a prefill against the decode chain
+# (c): a prefill against the decode chain (2 x 256 before PR 24, cut so the
+# script with path 13 stays inside its time limit)
+XLSTM_PREFILL_B, XLSTM_PREFILL_S = 2, 128
 # Tolerances, each about twice the gap it bounds as measured on the H100
-# (PERF.md §6, PR 22).  A bf16 xLSTM 24 layers deep lies far from its fp32
+# (PERF.md §6, PR 22, with 32-token prompts and a 2 x 256 prefill, before
+# PR 24's cuts).  A bf16 xLSTM 24 layers deep lies far from its fp32
 # self, in the reference too (its own bf16 decode logits 0.39-1.25 from its
 # fp32 ones at depth 24 on the CPU, its bf16 prefill 0.85 from its decode
 # chain: tools/xlstm_depth_gap.py; ROADMAP queue 3), so the whole-model
@@ -3900,11 +3940,13 @@ def xlstm_inputs(model):
 
 
 def _upcast_state(state):
-    if state is None:
-        return None
-    if isinstance(state, torch.Tensor):
+    """``state``'s float tensors (in tuples and lists too) in fp32; the rest
+    (None, integer positions) as it is."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_upcast_state(x) for x in state)
+    if isinstance(state, torch.Tensor) and state.dtype.is_floating_point:
         return state.float()
-    return type(state)(_upcast_state(x) for x in state)
+    return state
 
 
 def check_xlstm_blocks(model, xs, what, card, tol=None):
@@ -4038,7 +4080,7 @@ def xlstm_train_bound_ms(model, n_params):
 def phase_xlstm_serve(curated, card):
     """Path 11 (b), (e) on a decode input: xlstm-350m at its full published
     config behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of
-    32 curated tokens and 16 new tokens, against an fp32 twin in lockstep;
+    16 curated tokens and 16 new tokens, against an fp32 twin in lockstep;
     the gap to a fresh fp32 forward of each request's own tokens reported."""
     cfg = get_config(XLSTM_ARCH)
     torch.cuda.reset_peak_memory_stats()
@@ -4097,7 +4139,7 @@ def phase_xlstm_serve(curated, card):
 
 
 def phase_xlstm_prefill(model, curated, card):
-    """Path 11 (c): ``prefill`` of 2 x 256 curated tokens against a
+    """Path 11 (c): ``prefill`` of 2 x 128 curated tokens against a
     token-by-token ``decode_step`` chain over the same tokens from a fresh
     cache: the last logits within ``XLSTM_CHAIN_TOL``, every state leaf
     within ``XLSTM_STATE_TOL`` of its largest |x|."""
@@ -4133,21 +4175,14 @@ def phase_xlstm_prefill(model, curated, card):
                 xlstm_chain_states=states)
 
 
-def phase_xlstm_train(model, curated, card):
-    """Path 11 (d), (e) on a training batch: the served model trains
-    ``XLSTM_STEPS`` steps of 8 x 64 curated tokens through ``make_train_step``
-    (``remat="full"``, lr 3e-3, warmup 10): the loss falls, every gradient
-    is finite; step median/p99, kernels, the bound, the peak."""
-    cfg = model.cfg
-    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=XLSTM_STEPS)
-    torch.cuda.reset_peak_memory_stats()
-    step_fn = make_train_step(model, opt_cfg)
-    state = optim_module.init_state(dict(model.named_parameters()))
-    rng = np.random.default_rng(1)
-    batches = [torch.as_tensor(curated[rng.integers(0, len(curated), size=TRAIN_BATCH)],
-                               dtype=torch.int32, device=model.device) for _ in range(XLSTM_STEPS)]
-    served = block_check_on_batch(model, batches[0], "a training batch, the served weights",
-                                  card)
+def train_checked(step_fn, state, batches, card):
+    """``step_fn`` over ``batches``, each step timed to a sync, with every
+    step's gradients checked finite inside ``optim.update`` (wrapped while
+    the steps run; the first step with a non-finite gradient is printed).
+    Returns (state, the losses, each step's ms, the seconds, every
+    gradient finite).  Pass ``state`` with no other name for it: each step
+    frees the state it replaces, and a caller's name would keep the first
+    one's 12 B a parameter alive through every step (and in the peak)."""
     update, finite = optim_module.update, []
 
     def checked(cfg_, st, grads, dtypes):
@@ -4160,8 +4195,7 @@ def phase_xlstm_train(model, curated, card):
     optim_module.update = checked
     t_all = time.perf_counter()
     try:
-        for toks in batches:
-            batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+        for batch in batches:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, loss, _ = step_fn(state, batch)
@@ -4171,7 +4205,6 @@ def phase_xlstm_train(model, curated, card):
     finally:
         optim_module.update = update
     train_s = time.perf_counter() - t_all
-    peak = torch.cuda.max_memory_allocated()
     losses_f = [float(x) for x in losses]
     names = finite.pop(1)
     flags = torch.stack(finite).cpu().numpy()  # (steps, leaves)
@@ -4180,6 +4213,28 @@ def phase_xlstm_train(model, curated, card):
         first = int(np.flatnonzero(~flags.all(axis=1))[0])
         print(f"   [{card}] (d) step {first}'s gradients are not finite in "
               f"{[n for n, ok in zip(names, flags[first]) if not ok][:8]}; losses {losses_f}")
+    return state, losses_f, ms, train_s, all_finite
+
+
+def phase_xlstm_train(model, curated, card):
+    """Path 11 (d), (e) on a training batch: the served model trains
+    ``XLSTM_STEPS`` steps of 8 x 64 curated tokens through ``make_train_step``
+    (``remat="full"``, lr 3e-3, warmup 10): the loss falls, every gradient
+    is finite; step median/p99, kernels, the bound, the peak."""
+    cfg = model.cfg
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=XLSTM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt_cfg)
+    rng = np.random.default_rng(1)
+    batches = [torch.as_tensor(curated[rng.integers(0, len(curated), size=TRAIN_BATCH)],
+                               dtype=torch.int32, device=model.device) for _ in range(XLSTM_STEPS)]
+    served = block_check_on_batch(model, batches[0], "a training batch, the served weights",
+                                  card)
+    batches = [{"tokens": t, "labels": t.roll(-1, dims=1)} for t in batches]
+    state, losses_f, ms, train_s, all_finite = train_checked(
+        step_fn, optim_module.init_state(dict(model.named_parameters())), batches, card)
+    peak = torch.cuda.max_memory_allocated()
+    batch = batches[-1]
     steps = np.array(ms[1:])  # the first step allocates the state
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (np.median(steps) / 1e3)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4249,7 +4304,9 @@ ZAMBA_ARCH = "zamba2-7b"  # full published config (configs/zamba2_7b.py), nothin
 # ~210-265 GB, beyond the card's 80 GB.
 ZAMBA_TRAIN_LAYERS = 7
 ZAMBA_REQUESTS = 8  # (b): one pool load
-ZAMBA_PREFILL_B, ZAMBA_PREFILL_S = 2, 256  # (c): one SSD chunk at the published chunk of 256
+# (c): half an SSD chunk of the published 256 (2 x 256 before PR 24, cut so
+# the script with path 13 stays inside its time limit)
+ZAMBA_PREFILL_B, ZAMBA_PREFILL_S = 2, 128
 ZAMBA_TRAIN_SEQ = 256  # (d): 8 x 256, where the reference's SSD backward gives a non-finite ∂la
 ZAMBA_STEPS = 20  # (d): no more than FAM_STEPS
 # (d)'s peak lr: at 3e-3 (paths 9-11's) Adam moves each weight by ~18% of its
@@ -4257,7 +4314,8 @@ ZAMBA_STEPS = 20  # (d): no more than FAM_STEPS
 # 20 steps, measured on one H100
 ZAMBA_LR = 3e-4
 # Tolerances, each about twice the gap it bounds as measured on the H100
-# (PERF.md §6).  (b) The served bf16 logits against the fp32 twin
+# (PERF.md §6; PR 23's runs, with 32-token prompts and a 2 x 256 prefill,
+# before PR 24's cuts).  (b) The served bf16 logits against the fp32 twin
 # driven in lockstep, max |diff| over every generated position: 0.6492
 # measured, 84 layers of bf16 rounding carried by the SSM states and the
 # residual stream.  (c) Prefill's last logits against the decode chain's:
@@ -4434,7 +4492,7 @@ def zamba_train_bound_ms(model, n_params):
 
 def phase_zamba_serve(curated, card):
     """Path 12 (b), (e) on a decode input: zamba2-7b at its full published
-    config behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 32
+    config behind ``ServeEngine(max_batch=8, s_max=256)``, 8 requests of 16
     curated tokens and 16 new tokens, against an fp32 twin in lockstep."""
     cfg = get_config(ZAMBA_ARCH)
     torch.cuda.reset_peak_memory_stats()
@@ -4499,8 +4557,8 @@ def phase_zamba_serve(curated, card):
 
 
 def phase_zamba_prefill(model, curated, card):
-    """Path 12 (c): ``prefill`` of 2 x 256 curated tokens against a
-    token-by-token ``decode_step`` chain over the same tokens on a 256-row
+    """Path 12 (c): ``prefill`` of 2 x 128 curated tokens against a
+    token-by-token ``decode_step`` chain over the same tokens on a 128-row
     cache: the last logits within ``ZAMBA_CHAIN_TOL``, every cache leaf
     (the Mamba2 states and tails, the shared block's k and v) within
     ``ZAMBA_STATE_TOL`` of its largest |x|; the prefill's time beside its
@@ -4559,44 +4617,16 @@ def phase_zamba_train(curated, card):
             f"path 12 (d): {model.n_macro} macros of {model.m_per_macro}")
     opt_cfg = optim_module.OptConfig(lr=ZAMBA_LR, warmup_steps=10, total_steps=ZAMBA_STEPS)
     step_fn = make_train_step(model, opt_cfg)
-    state = optim_module.init_state(dict(model.named_parameters()))
     rng = np.random.default_rng(1)
     batches = [curated_rows(curated, TRAIN_BATCH, ZAMBA_TRAIN_SEQ, rng)
                for _ in range(ZAMBA_STEPS)]
     served = zamba_block_check_on_batch(model, batches[0], "a training batch, fresh weights",
                                         card)
-    update, finite = optim_module.update, []
-
-    def checked(cfg_, st, grads, dtypes):
-        finite.append(torch.stack([torch.isfinite(g).all() for g in grads.values()]))
-        if len(finite) == 1:
-            finite.append(list(grads))  # the leaves' names, in the order of the flags
-        return update(cfg_, st, grads, dtypes)
-
-    losses, ms = [], []
-    optim_module.update = checked
-    t_all = time.perf_counter()
-    try:
-        for toks in batches:
-            batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss, _ = step_fn(state, batch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(loss)
-    finally:
-        optim_module.update = update
-    train_s = time.perf_counter() - t_all
+    batches = [{"tokens": t, "labels": t.roll(-1, dims=1)} for t in batches]
+    state, losses_f, ms, train_s, all_finite = train_checked(
+        step_fn, optim_module.init_state(dict(model.named_parameters())), batches, card)
     peak = torch.cuda.max_memory_allocated()
-    losses_f = [float(x) for x in losses]
-    names = finite.pop(1)
-    flags = torch.stack(finite).cpu().numpy()  # (steps, leaves)
-    all_finite = bool(flags.all())
-    if not all_finite:
-        first = int(np.flatnonzero(~flags.all(axis=1))[0])
-        print(f"   [{card}] (d) step {first}'s gradients are not finite in "
-              f"{[n for n, ok in zip(names, flags[first]) if not ok][:8]}; losses {losses_f}")
+    batch = batches[-1]
     steps = np.array(ms[1:])  # the first step allocates the state
     tok_s = TRAIN_BATCH * ZAMBA_TRAIN_SEQ / (np.median(steps) / 1e3)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4654,6 +4684,414 @@ def phase_zamba(card):
     require(out["launches"]["ell"] == out["sweeps"] and
             all(n == 0 for key, n in out["launches"].items() if key != "ell"),
             f"path 12: launches {out['launches']} for {out['sweeps']} sweeps")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the audio family (path 13)
+# --------------------------------------------------------------------- #
+WHISPER_ARCH = "whisper-medium"  # full published config (configs/whisper_medium.py), nothing cut
+WHISPER_PARAMS = 812_576_768  # the reference's init's leaves (ArchConfig.num_params: 812,034,048)
+# (b): 8 windows of 30 s; Whisper's stride-2 conv stem takes a window's 3,000
+# mel frames to 1,500, which the reference's stub takes as given
+WHISPER_B, WHISPER_FRAMES = 8, 1500
+WHISPER_DECODE = 32  # (b): greedy decode steps from the prefill's cache
+WHISPER_PROMPT = 8  # (c): curated prompt tokens a request, FAM_NEW new
+# (d): train steps of WHISPER_B x WHISPER_FRAMES frames: 10, the fewest the
+# path holds to a falling loss (20 took 29.1 s of a 129.2 s path 13 alone,
+# a step 1410.24 ms, on an NVIDIA H100 80GB HBM3 at 700.00 W)
+WHISPER_STEPS = 10
+WHISPER_LR = 3e-4  # (d): path 12's lr (3e-3 made its loss rise)
+# Tolerances, each about twice the gap it bounds as measured on the H100
+# (PERF.md §6, PR 24).  (b) The bf16 chain's logits (prefill and 32
+# greedy steps) against the fp32 twin driven in lockstep: 0.0774 measured;
+# against one teacher-forced decoder forward of the same tokens over the
+# same encoding: 0.0703 (the same bf16 weights and cross memory; S = 1
+# products and the cached self k and v round otherwise than S = 33 ones).
+# (c) The served logits against the fp32 twin's teacher-forced decoder over
+# a zero memory (the engine's cross cache is init_cache's zeros; with the
+# biases at their zero init the cross attention gives bo either way):
+# 0.0636.  (e) Each encoder and decoder block's bf16 output against its fp32
+# upcast on the same input, relative to the fp32 output's largest |y|:
+# 0.0058 at most (the encoder's attention), held within 2^-6.
+WHISPER_TWIN_TOL = 0.16
+WHISPER_FORCED_TOL = 0.15
+WHISPER_SERVE_TOL = 0.13
+WHISPER_LAYER_TOL = 2.0 ** -6
+
+
+def whisper_blocks(model):
+    """(name, module, the methods a forward or a decode step calls) of every
+    block path 13 holds to its fp32 upcast: each encoder layer's attention
+    and MLP, each decoder layer's self-attention, cross-attention and MLP."""
+    out = []
+    for i, layer in enumerate(model.enc_layers):
+        out += [(f"enc_layers.{i}.attn", layer.attn, ("forward",)),
+                (f"enc_layers.{i}.mlp", layer.mlp, ("forward",))]
+    for i, layer in enumerate(model.dec_layers):
+        out += [(f"dec_layers.{i}.attn", layer.attn, ("forward", "decode")),
+                (f"dec_layers.{i}.xattn", layer.xattn, ("cross_attn",)),
+                (f"dec_layers.{i}.mlp", layer.mlp, ("forward",))]
+    return out
+
+
+def whisper_inputs(model):
+    """Wrap every block's methods (the instance's) so that each block's
+    first call while ``rec["on"]`` is a prefix of its name (``"enc"``,
+    ``"dec"`` or ``""`` for all) keeps its method and a copy of its
+    arguments, taken before a decode writes its cache.  Returns (rec,
+    remove)."""
+    rec = dict(on=None, x={})
+    wrapped = []
+    for name, block, methods in whisper_blocks(model):
+        for method in methods:
+            def kept(*args, name=name, method=method, fn=getattr(block, method), **kw):
+                if rec["on"] is not None and name.startswith(rec["on"]) and name not in rec["x"]:
+                    rec["x"][name] = (method, _kept(args), kw)
+                return fn(*args, **kw)
+            setattr(block, method, kept)
+            wrapped.append((block, method))
+    return rec, lambda: [block.__dict__.pop(method) for block, method in wrapped]
+
+
+def check_whisper_blocks(model, xs, what, card):
+    """Every block on its kept bf16 input (and, at decode, its self cache
+    before the step's write, or the cross memory) against an fp32 upcast of
+    the same block on the same input: the outputs within
+    ``WHISPER_LAYER_TOL`` of the fp32 output's largest |y|.  Returns the
+    worst ratio of each kind."""
+    blocks = {name: block for name, block, _ in whisper_blocks(model)}
+    require(sorted(xs) == sorted(blocks), f"path 13 {what}: {len(xs)} of {len(blocks)} block "
+            f"inputs kept")
+    worst = {}
+    with torch.no_grad():
+        for name, (method, args, kw) in sorted(xs.items()):
+            block = blocks[name]
+            twin = copy.deepcopy(block).float()
+            y16 = getattr(block, method)(*_kept(args), **kw)
+            y32 = getattr(twin, method)(*_upcast_state(args), **kw)
+            del twin
+            if isinstance(y16, tuple):  # the attention's forward: (y, (k, v))
+                y16, y32 = y16[0], y32[0]
+            ratio = float((y16.float() - y32).abs().max() / y32.abs().max())
+            require(bool(torch.isfinite(y16).all()), f"path 13 {what}: {name} is not finite")
+            require(ratio <= WHISPER_LAYER_TOL, f"path 13 {what}: {name}'s bf16 output is "
+                    f"{ratio} of its scale from fp32, tolerance {WHISPER_LAYER_TOL}")
+            kind = name.split(".")[0][:3] + " " + name.split(".")[-1]
+            worst[kind] = max(worst.get(kind, 0.0), ratio)
+    print(f"   [{card}] (e) {what}: every block's bf16 output vs its fp32 upcast on its kept "
+          f"input, of the block's max|y| (tolerance {WHISPER_LAYER_TOL:.5f}): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in worst.items()))
+    return worst
+
+
+def whisper_ops(cfg, b, s_f, s_t):
+    """(bf16 product operations, fp32 attention operations) of one forward
+    over ``b`` rows of ``s_f`` frames and ``s_t`` decoder tokens:
+    ``frontend_proj`` and the encoder's products on every frame; each
+    decoder layer's cross k and v projected from every frame; the decoder's
+    other products and the lm_head on every token; the encoder's
+    bidirectional scores and probs·v (4·B·H·hd·S_f² a layer), the decoder's
+    causal ones (4·B·H·hd·S_t(S_t+1)/2) and its cross ones
+    (4·B·H·hd·S_t·S_f), in fp32 as the reference computes them."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn, kv = cfg._attn_params(), 2 * d * cfg.n_kv_heads * hd
+    frame_ops = cfg.frontend_dim * d + cfg.n_enc_layers * (attn + 2 * d * f) + cfg.n_layers * kv
+    token_ops = cfg.n_layers * (2 * attn - kv + 2 * d * f) + d * cfg.vocab
+    bf16 = 2 * b * (s_f * frame_ops + s_t * token_ops)
+    f32 = 4 * b * cfg.n_heads * hd * (cfg.n_enc_layers * s_f * s_f
+                                      + cfg.n_layers * (s_t * (s_t + 1) / 2 + s_t * s_f))
+    return bf16, f32
+
+
+def whisper_prefill_bound_ms(model, b, s):
+    """The least time (ms) of ``prefill`` over ``b`` x ``s`` frames: the
+    larger of the bytes (the frames read, every weight but the embedding
+    read once, the cache written once) and the operations (``whisper_ops``
+    with the one token it decodes).  Returns (ms, bound_by, bytes ms, bf16
+    ms, fp32 ms)."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if n != "embed")
+    cache = sum(x.numel() * x.element_size() for x in model.cache_shape(b, s).values())
+    bytes_ms = (weights + cache + b * s * cfg.frontend_dim * 2) / HBM_BYTES_PER_S * 1e3
+    bf16, f32 = whisper_ops(cfg, b, s, 1)
+    ops_ms = (bf16 / BF16_FLOPS * 1e3, f32 / F32_FLOPS * 1e3)
+    by = "bytes" if bytes_ms >= sum(ops_ms) else "operations"
+    return (max(bytes_ms, sum(ops_ms)), by, bytes_ms) + ops_ms
+
+
+def whisper_decode_bound_ms(model, cache, pos):
+    """The least time (ms) of one ``decode_step`` at position ``pos``: the
+    decoder's weights and the lm_head read once, a row of the embedding a
+    slot, the cross k and v read once, the self k and v of the ``pos + 1``
+    rows it attends to read and its new row written, the bf16 logits
+    written, at the HBM rate.  Returns (ms, bytes)."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if n.startswith("dec_layers.") or n in ("lm_head", "final_norm"))
+    b = cache["self_k"].shape[1]
+    row = cfg.n_layers * b * cfg.n_kv_heads * cfg.hd * 2  # one position's k (or v), bf16
+    cross = sum(cache[k].numel() * cache[k].element_size() for k in ("cross_k", "cross_v"))
+    read = (weights + b * cfg.d_model * 2 + cross + 2 * row * (pos + 1) + 2 * row
+            + b * cfg.vocab * 2)
+    return read / HBM_BYTES_PER_S * 1e3, read
+
+
+def whisper_train_bound_ms(model, n_params, b, s_f, s_t):
+    """The least time (ms) of one train step: ``whisper_ops`` x 3 (forward
+    and backward) at the bf16 and fp32 rates, the optimizer's 28 B a
+    parameter at the HBM rate.  Returns (total, products, attention,
+    optimizer)."""
+    bf16, f32 = whisper_ops(model.cfg, b, s_f, s_t)
+    parts = (3 * bf16 / BF16_FLOPS * 1e3, 3 * f32 / F32_FLOPS * 1e3,
+             28 * n_params / HBM_BYTES_PER_S * 1e3)
+    return (sum(parts),) + parts
+
+
+def whisper_frames(cfg, seed, device=None):
+    """``WHISPER_B`` windows of ``WHISPER_FRAMES`` seeded frame embeddings
+    on the card, bf16 normals as ``launch.specs.make_batch`` draws them."""
+    spec = ShapeSpec("t", WHISPER_FRAMES, WHISPER_B, "prefill")
+    return make_batch(cfg, spec, seed=seed, device=device)["frames"]
+
+
+def phase_whisper_transcribe(card):
+    """Path 13 (b), (e) at decode: whisper-medium at its full published
+    config transcribes 8 windows of 1,500 frames: ``prefill`` (encode,
+    the cross k and v, token 0) beside its bound, then ``WHISPER_DECODE``
+    greedy ``decode_step``s from its cache beside an fp32 twin driven in
+    lockstep, then the chain against one teacher-forced decoder forward of
+    the same tokens over the same encoding."""
+    cfg = get_config(WHISPER_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    require(type(model).__name__ == "EncDecModel" and n_params == WHISPER_PARAMS
+            and all(p.dtype == torch.bfloat16 for p in params.values()),
+            f"path 13: {type(model).__name__} of {n_params:,} parameters")
+    print(f"   {cfg.name}: {cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"frontend_dim {cfg.frontend_dim}: {n_params:,} parameters (ArchConfig.num_params "
+          f"estimates {cfg.num_params():,}), {weight_bytes:,} B of bf16 weights, drawn in "
+          f"{build_s:.1f} s")
+    twin = lm_fp32_reference(model)
+    dev = model.device
+    frames = whisper_frames(cfg, seed=0, device=dev)
+    caps, remove = whisper_inputs(model)
+    try:
+        with torch.no_grad():
+            caps["on"] = "enc"
+            logits, cache = model.prefill({"frames": frames})  # also the timing's warm-up
+            caps["on"] = None
+            torch.cuda.reset_peak_memory_stats()
+            prefill_ms = _wall_ms(lambda: model.prefill({"frames": frames}))
+            prefill_peak = torch.cuda.max_memory_allocated()
+            tlogits, tcache = twin.prefill({"frames": frames})
+            rows, trows, toks, step_ms = [logits], [tlogits], [logits[:, -1].argmax(-1)], []
+            for j in range(WHISPER_DECODE):
+                batch = {"tokens": toks[-1][:, None], "pos": torch.tensor(j + 1, device=dev)}
+                caps["on"] = "dec" if j == WHISPER_DECODE // 2 else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(cache, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                caps["on"] = None
+                tl, tcache = twin.decode_step(tcache, batch)
+                rows.append(logits)
+                trows.append(tl)
+                toks.append(logits[:, -1].argmax(-1))
+            chain = torch.cat(rows, 1).float()
+            twin_gap = float((chain - torch.cat(trows, 1).float()).abs().max())
+            forced = torch.stack([torch.zeros_like(toks[0])] + toks[:-1], 1)  # token 0, then the chain's
+            memory = model.encode(frames)
+            forced_logits = model._head(model._decoder(forced, memory,
+                                                       model._positions(*forced.shape)))
+            forced_gap = float((chain - forced_logits.float()).abs().max())
+            print(f"   [{card}] a decode step's kernels by time (torch.profiler, 3 steps):")
+            kernel_ms, launches = profile_kernels(lambda: model.decode_step(cache, batch), 3,
+                                                  "path 13 (b)", top=6)
+            del memory, forced_logits, tcache
+    finally:
+        remove()
+    steps = np.array(step_ms)
+    p50 = float(np.median(steps))
+    cache_bytes = {key: leaf.numel() * leaf.element_size() for key, leaf in cache.items()}
+    pb = whisper_prefill_bound_ms(model, WHISPER_B, WHISPER_FRAMES)
+    db, read = whisper_decode_bound_ms(model, cache, WHISPER_DECODE)
+    require(bool(torch.isfinite(chain).all()), "path 13: the chain's logits are not finite")
+    print(f"   [{card}] (b) prefill of {WHISPER_B} x {WHISPER_FRAMES} frames {prefill_ms:.2f} ms "
+          f"(median of 3; bound {pb[0]:.2f} ms by {pb[1]}: bytes {pb[2]:.2f}, bf16 products "
+          f"{pb[3]:.2f}, fp32 scores and probs·v {pb[4]:.2f}; max_memory_allocated "
+          f"{prefill_peak:,} B); the cache {cache_bytes} B")
+    print(f"   [{card}] {WHISPER_DECODE} greedy decode steps: median {p50:.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms, {WHISPER_B / p50 * 1e3:.1f} tokens/s; one step on "
+          f"the card (torch.profiler, 3 steps): {kernel_ms:.3f} ms of kernels ({launches:.0f} "
+          f"launches), busy {kernel_ms / p50:.1%}, idle {1 - kernel_ms / p50:.1%}; bound "
+          f"{db:.3f} ms (bytes {read:,}: the decoder's weights and lm_head, the cross k and v, "
+          f"the {WHISPER_DECODE + 1} self rows attended; kernels {kernel_ms / db:.1f}x it)")
+    print(f"   [{card}] the chain's logits vs the fp32 twin in lockstep max|diff| {twin_gap:.4f} "
+          f"(tolerance {WHISPER_TWIN_TOL}); vs one teacher-forced decoder forward of the same "
+          f"{WHISPER_DECODE + 1} tokens over the same encoding {forced_gap:.4f} (tolerance "
+          f"{WHISPER_FORCED_TOL})")
+    require(twin_gap <= WHISPER_TWIN_TOL, f"path 13: the chain {twin_gap} from the fp32 twin")
+    require(forced_gap <= WHISPER_FORCED_TOL,
+            f"path 13: the chain {forced_gap} from the teacher-forced decoder")
+    layers = check_whisper_blocks(model, caps["x"], "the prefill's encoder and a decode step",
+                                  card)
+    return dict(model=model, twin=twin, whisper_params=n_params,
+                whisper_prefill_ms=prefill_ms, whisper_prefill_bound_ms=pb[0],
+                whisper_prefill_bound_by=pb[1], whisper_prefill_peak_bytes=prefill_peak,
+                whisper_step_ms_p50=p50, whisper_step_ms_p99=float(np.percentile(steps, 99)),
+                whisper_step_kernel_ms=kernel_ms, whisper_step_launches=launches,
+                whisper_step_bound_ms=db, whisper_cache_bytes=cache_bytes,
+                whisper_twin_gap=twin_gap, whisper_forced_gap=forced_gap,
+                whisper_decode_layers=layers)
+
+
+def phase_whisper_serve(model, twin, curated, card):
+    """Path 13 (c): ``ServeEngine(8, 256)`` serves 8 requests of
+    ``WHISPER_PROMPT`` curated tokens, ``FAM_NEW`` new each, with the
+    engine's own enc-dec cache, whose cross memory stays ``init_cache``'s
+    zeros (as the reference's engine); every served logit against the fp32
+    twin's teacher-forced decoder over a zero memory."""
+    cfg = model.cfg
+    require(all(not layer.xattn.bk.any() and not layer.xattn.bv.any()
+                for layer in model.dec_layers), "path 13 (c): the cross biases are not zero")
+    reqs = fixed_requests(curated, FAM_REQUESTS, seed=1, prompt=WHISPER_PROMPT)
+    with torch.no_grad():
+        engine, rec = serve_recorded(model, reqs, "path 13")
+        require(not engine.cache["cross_k"].any() and not engine.cache["cross_v"].any(),
+                "path 13 (c): the engine's cross memory is not zero")
+        zero = torch.zeros((1, 1, cfg.d_model), device=model.device)
+        err = 0.0
+        for r in reqs:
+            toks = torch.as_tensor(np.concatenate([r.prompt, np.asarray(r.out[:-1])])[None],
+                                   dtype=torch.int64, device=model.device)
+            want = twin._head(twin._decoder(toks, zero, twin._positions(*toks.shape)))[0]
+            got = torch.stack(rec["rows"][r.uid])
+            require(bool(torch.isfinite(got).all()), f"path 13 (c): request {r.uid}'s logits")
+            err = max(err, float((got - want[len(r.prompt) - 1:]).abs().max()))
+        kernel_ms, launches = decode_device_time(model, engine)
+    print(f"   [{card}] (c) ServeEngine({LM_POOL}, {LM_S_MAX}): {FAM_REQUESTS} requests of "
+          f"{WHISPER_PROMPT} curated tokens, {FAM_NEW} new each, in {rec['run_s']:.1f} s: "
+          f"{engine.steps} pooled steps, {engine.prefill_calls} prefill calls; a pooled step "
+          f"median {rec['p50']:.2f} ms, p99 {rec['p99']:.2f} ms; {rec['tok_s']:.1f} tokens/s at "
+          f"{LM_POOL} slots; {kernel_ms:.3f} ms of kernels a step ({launches:.0f} launches); "
+          f"logits vs the fp32 twin's teacher-forced decoder over a zero memory max|diff| "
+          f"{err:.4f} (tolerance {WHISPER_SERVE_TOL})")
+    require(err <= WHISPER_SERVE_TOL, f"path 13 (c): served logits {err} from the fp32 twin")
+    return dict(whisper_serve_ms_p50=rec["p50"], whisper_serve_ms_p99=rec["p99"],
+                whisper_serve_tokens_per_s=rec["tok_s"], whisper_serve_gap=err,
+                whisper_serve_kernel_ms=kernel_ms, whisper_serve_launches=launches)
+
+
+def whisper_batches(cfg, curated, n, seed, device):
+    """``n`` training batches on ``device``: ``WHISPER_B`` rows of
+    ``WHISPER_FRAMES`` frames (bf16 normals from a generator there seeded
+    with ``seed``) and ``WHISPER_FRAMES // DEC_FRAC`` curated tokens
+    (documents end to end, cut), labels the next token."""
+    s_t = WHISPER_FRAMES // DEC_FRAC
+    per_row = -(-s_t // curated.shape[1])
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        docs = rng.choice(len(curated), WHISPER_B * per_row, replace=False)
+        toks = torch.as_tensor(curated[docs].reshape(WHISPER_B, -1)[:, :s_t],
+                               dtype=torch.int64, device=device)
+        frames = torch.randn((WHISPER_B, WHISPER_FRAMES, cfg.frontend_dim), generator=gen,
+                             device=device).to(torch.bfloat16)
+        out.append({"frames": frames, "tokens": toks, "labels": toks.roll(-1, dims=1)})
+    return out
+
+
+def phase_whisper_train(model, curated, card):
+    """Path 13 (d), (e) on a training batch: the served model trains
+    ``WHISPER_STEPS`` steps of 8 x 1,500 frames and 187 curated tokens a
+    row through ``make_train_step`` (``remat="full"``, lr ``WHISPER_LR``,
+    warmup 10): the loss falls, every gradient is finite; step median/p99,
+    kernels, the bound, the peak."""
+    cfg = model.cfg
+    opt_cfg = optim_module.OptConfig(lr=WHISPER_LR, warmup_steps=10, total_steps=WHISPER_STEPS)
+    batches = whisper_batches(cfg, curated, WHISPER_STEPS, seed=1, device=model.device)
+    caps, remove = whisper_inputs(model)
+    caps["on"] = ""
+    try:
+        with torch.no_grad():
+            model(batches[0]["tokens"], batches[0]["frames"])
+    finally:
+        remove()
+    served = check_whisper_blocks(model, caps["x"], "a training batch, the served weights", card)
+    del caps
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt_cfg)
+    state, losses_f, ms, train_s, all_finite = train_checked(
+        step_fn, optim_module.init_state(dict(model.named_parameters())), batches, card)
+    peak = torch.cuda.max_memory_allocated()
+    batch = batches[-1]
+    steps = np.array(ms[1:])  # the first step allocates the state
+    s_t = WHISPER_FRAMES // DEC_FRAC
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"   [{card}] a train step's kernels by time (torch.profiler, {PROFILED_STEPS} step):")
+    step_kernel_ms, step_launches, state = step_device_time(model, state, batch, opt_cfg, top=8)
+    bound = whisper_train_bound_ms(model, n_params, WHISPER_B, WHISPER_FRAMES, s_t)
+    print(f"   [{card}] (d) {cfg.name} at its full config ({n_params:,} parameters), remat "
+          f"{cfg.remat!r}: {WHISPER_STEPS} steps of {WHISPER_B} x {WHISPER_FRAMES} frames and "
+          f"{s_t} curated tokens a row in {train_s:.1f} s (lr {WHISPER_LR}); losses "
+          f"{[round(x, 4) for x in losses_f]}; every gradient finite: {all_finite}")
+    print(f"   [{card}] a step (first excluded): median {np.median(steps):.2f} ms, p99 "
+          f"{np.percentile(steps, 99):.2f} ms; {WHISPER_B * WHISPER_FRAMES / np.median(steps) * 1e3:.0f}"
+          f" frames/s; first step {ms[0]:.1f} ms; one step on the card (torch.profiler, "
+          f"{PROFILED_STEPS} step): {step_kernel_ms:.2f} ms of kernels ({step_launches:.0f} "
+          f"launches), busy {step_kernel_ms / np.median(steps):.1%}; bound {bound[0]:.2f} ms "
+          f"(bf16 products {bound[1]:.2f}, fp32 scores and probs·v {bound[2]:.2f}, optimizer "
+          f"bytes {bound[3]:.2f}); max_memory_allocated {peak:,} B")
+    require(np.isfinite(losses_f).all() and losses_f[-1] < losses_f[0],
+            f"path 13: loss {losses_f[0]} -> {losses_f[-1]}")
+    require(all_finite, "path 13: a gradient is not finite")
+    del state
+    return dict(whisper_train_losses=losses_f, whisper_train_s=train_s,
+                whisper_train_step_ms_p50=float(np.median(steps)),
+                whisper_train_step_ms_p99=float(np.percentile(steps, 99)),
+                whisper_train_kernel_ms=step_kernel_ms, whisper_train_launches=step_launches,
+                whisper_train_bound_ms=bound, whisper_train_peak_bytes=peak,
+                whisper_train_layers=served)
+
+
+def phase_whisper(card):
+    """Path 13: curation on the card over whisper-medium's vocabulary, then
+    whisper-medium at its full published config transcribing, served and
+    trained.  Every wrapper's count is set to 0 before (a) and read after
+    (d)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # path 12's models are gone
+    reset_launches()
+    out = phase_family_curation(card, get_config(WHISPER_ARCH).vocab, "path 13")
+    times = {}
+    for part, run in (("b", lambda: phase_whisper_transcribe(card)),
+                      ("c", lambda: phase_whisper_serve(out["model"], out.pop("twin"),
+                                                        out["curated"], card)),
+                      ("d", lambda: phase_whisper_train(out.pop("model"), out["curated"],
+                                                        card))):
+        t0 = time.perf_counter()
+        out.update(run())
+        gc.collect()
+        torch.cuda.empty_cache()
+        times[part] = time.perf_counter() - t0
+        print(f"   ({part}) {times[part]:.1f} s", flush=True)
+    out["part_s"] = times
+    out["launches"] = read_launches()
+    print(f"   path 13 launches {out['launches']}; sweeps {out['sweeps']}")
+    require(out["launches"]["ell"] == out["sweeps"] and
+            all(n == 0 for key, n in out["launches"].items() if key != "ell"),
+            f"path 13: launches {out['launches']} for {out['sweeps']} sweeps")
     return out
 
 
@@ -4723,13 +5161,16 @@ def main(argv=None) -> int:
     with Phase(f"path 12: {ZAMBA_ARCH} serves and prefills at its full config, one macro of it "
                f"trains"):
         out12 = phase_zamba(card)
+    with Phase(f"path 13: {WHISPER_ARCH} transcribes, serves and trains at its full config"):
+        out13 = phase_whisper(card)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
                  path6=out6["launches"], path6_exact=out6["exact_launches"],
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
                  path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"],
-                 path10=out10["launches"], path11=out11["launches"], path12=out12["launches"])
+                 path10=out10["launches"], path11=out11["launches"], path12=out12["launches"],
+                 path13=out13["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

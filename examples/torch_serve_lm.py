@@ -6,9 +6,12 @@
 The port of ``examples/serve_lm.py``: serves a (reduced-config) model with
 the slot-pool engine; requests with different prompt lengths and budgets
 stream through a fixed decode pool, each slot tracking its own cache
-position (``--arch`` takes any ported family: a dense, moe or vlm
-transformer with a KV cache, or xlstm-350m, whose cache holds recurrent
-states).  The model's bf16 weights are drawn from a seeded generator.
+position (``--arch`` takes any family: a dense, moe or vlm transformer
+with a KV cache, xlstm-350m, whose cache holds recurrent states, zamba2-7b,
+whose cache holds Mamba2 states beside the shared block's k and v, or
+whisper-medium, whose cache holds the decoder's self k and v beside a cross
+memory that stays zeros, as in the reference's engine).  The model's bf16
+weights are drawn from a seeded generator.
 """
 
 import argparse

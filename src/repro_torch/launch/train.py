@@ -32,17 +32,20 @@ from repro_torch.training.trainer import make_train_step
 
 def synthetic_batch(cfg, batch: int, seq: int, step: int, device=None) -> dict:
     """Deterministic synthetic LM batch (markov-ish token stream): the
-    reference's numpy draws, so the same bytes.  In the vlm family the ramp
-    covers the text tokens only (the batch's ``tokens``/``labels`` width,
-    after the patch prefix); the reference's ramps the whole ``seq`` there,
-    which its own ``loss`` refuses (``pos3`` covers ``seq`` positions)."""
+    reference's numpy draws, so the same bytes, ``seq`` ramped tokens a row
+    (in the audio family too, beside ``seq`` frames).  In the vlm family the
+    ramp covers the text tokens only (the batch's ``tokens``/``labels``
+    width, after the patch prefix); the reference's ramps the whole ``seq``
+    there, which its own ``loss`` refuses (``pos3`` covers ``seq``
+    positions)."""
     rng = np.random.default_rng(step)
     spec = ShapeSpec("t", seq_len=seq, global_batch=batch, kind="train")
     b = make_batch(cfg, spec, seed=step, device=device)
     # make labels learnable: next-token of a periodic sequence
     if "tokens" in b and "labels" in b:
         base = rng.integers(0, cfg.vocab, size=(batch, 1))
-        ramp = (base + np.arange(b["tokens"].shape[1])[None, :]) % cfg.vocab
+        width = b["tokens"].shape[1] if cfg.family == "vlm" else seq
+        ramp = (base + np.arange(width)[None, :]) % cfg.vocab
         dev = b["tokens"].device
         b["tokens"] = torch.as_tensor(ramp.astype(np.int32), device=dev)
         b["labels"] = torch.as_tensor(((ramp + 1) % cfg.vocab).astype(np.int32), device=dev)

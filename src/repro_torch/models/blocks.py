@@ -8,9 +8,9 @@ arrays become ``nn.Module``s holding ``nn.Parameter``s under the reference's
 leaf names (``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, ``w1``,
 ``w3``, ``w2``, ``router`` …, weights laid out ``(in, out)`` as there), each
 with a ``forward`` for a whole sequence and, for attention, a ``decode``
-against a KV cache, or, for the recurrent blocks, a ``forward`` that takes
-and returns their state (and, for Mamba2 and the mLSTM, a ``decode`` of one
-token).
+against a KV cache (and a ``cross_attn`` over an encoder's output), or,
+for the recurrent blocks, a ``forward`` that takes and returns their state
+(and, for Mamba2 and the mLSTM, a ``decode`` of one token).
 """
 
 from __future__ import annotations
@@ -58,12 +58,15 @@ def _ones(n: int, gen: torch.Generator) -> nn.Parameter:
 # Attention
 # --------------------------------------------------------------------- #
 class Attention(nn.Module):
-    """Causal GQA attention with RoPE (M-RoPE under ``cfg.mrope`` when the
-    caller gives ``pos3``) and optional qk-norm (``attn_init`` without
-    biases).  The reference's biases and bidirectional attention serve the
-    audio family, whose slice adds them (``ROADMAP.md`` item 10)."""
+    """GQA attention (``attn_init``, ``attn_apply``, ``attn_decode``): causal
+    or bidirectional, with RoPE (M-RoPE under ``cfg.mrope`` when the caller
+    gives ``pos3``; none when ``positions`` is None), optional qk-norm and,
+    with ``bias``, the biases ``bq``, ``bk``, ``bv``, ``bo`` (bf16 zeros,
+    added after each product).  ``cross_attn`` and ``memory_kv`` are the
+    reference's ``cross_attn_apply`` and ``memory_kv_init``: the decoder's
+    queries against k and v projected from the encoder's output."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, bias: bool = False):
         super().__init__()
         self.cfg = cfg
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -71,15 +74,24 @@ class Attention(nn.Module):
         self.wk = _param(dense_init(gen, (d, hkv * hd)))
         self.wv = _param(dense_init(gen, (d, hkv * hd)))
         self.wo = _param(dense_init(gen, (h * hd, d), scale=1.0 / math.sqrt(h * hd)))
+        for name, n in (("bq", h * hd), ("bk", hkv * hd), ("bv", hkv * hd), ("bo", d)):
+            self.register_parameter(name, _zeros(n, gen) if bias else None)
         if cfg.qk_norm:
             self.q_norm, self.k_norm = _ones(hd, gen), _ones(hd, gen)
+
+    @staticmethod
+    def _proj(x, w, b):
+        """``x @ w`` plus the bias ``b`` unless it is None (the reference's
+        ``x @ w + p.get(b, 0)``)."""
+        y = mm(x, w)
+        return y if b is None else y + b
 
     def _project_qkv(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q, k, v = mm(x, self.wq), mm(x, self.wk), mm(x, self.wv)
-        q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
+        q = self._proj(x, self.wq, self.bq).reshape(b, s, h, hd)
+        k, v = self.memory_kv(x)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
@@ -87,21 +99,48 @@ class Attention(nn.Module):
 
     def _apply_rope(self, q, k, positions, pos3):
         """The reference's ``_apply_rope``: M-RoPE by the ``(3, B, S)``
-        ``pos3`` under ``cfg.mrope`` when it is given, else 1-D RoPE."""
+        ``pos3`` under ``cfg.mrope`` when it is given, else 1-D RoPE, or no
+        rotation when ``positions`` is None."""
         theta = self.cfg.rope_theta
         if self.cfg.mrope and pos3 is not None:
             return mrope(q, pos3, theta), mrope(k, pos3, theta)
+        if positions is None:
+            return q, k
         return rope(q, positions, theta), rope(k, positions, theta)
 
-    def forward(self, x, positions, pos3=None):
-        """Full-sequence attention (train / prefill).  Returns (y, (k, v))."""
+    def _out(self, y):
+        """The heads ``(B, S, H, hd)`` through ``wo`` (and ``bo``)."""
+        b, s = y.shape[:2]
+        return self._proj(y.reshape(b, s, self.cfg.n_heads * self.cfg.hd), self.wo, self.bo)
+
+    def forward(self, x, positions, pos3=None, causal=True):
+        """Full-sequence attention (train / prefill), causal or, with
+        ``causal=False``, bidirectional.  Returns (y, (k, v))."""
         cfg = self.cfg
         q, k, v = self._project_qkv(x)
         q, k = self._apply_rope(q, k, positions, pos3)
-        y = attention(q, k, v, causal=True, window=cfg.sliding_window,
+        y = attention(q, k, v, causal=causal, window=cfg.sliding_window,
                       impl=cfg.attn_impl, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-        b, s, _, _ = y.shape
-        return mm(y.reshape(b, s, cfg.n_heads * cfg.hd), self.wo), (k, v)
+        return self._out(y), (k, v)
+
+    def cross_attn(self, x, memory_kv):
+        """``cross_attn_apply``: bidirectional attention of ``x``'s queries
+        (no RoPE, no qk-norm) over ``memory_kv`` = (k, v) ``(B, S_mem, Hkv,
+        hd)``, projected from the encoder's output by ``memory_kv``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self._proj(x, self.wq, self.bq).reshape(b, s, cfg.n_heads, cfg.hd)
+        k, v = memory_kv
+        y = attention(q, k, v, causal=False, impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
+                      k_chunk=cfg.k_chunk)
+        return self._out(y)
+
+    def memory_kv(self, memory):
+        """``memory_kv_init``: (k, v) ``(B, S, Hkv, hd)`` of ``memory``."""
+        b, s, _ = memory.shape
+        hkv, hd = self.cfg.n_kv_heads, self.cfg.hd
+        return (self._proj(memory, self.wk, self.bk).reshape(b, s, hkv, hd),
+                self._proj(memory, self.wv, self.bv).reshape(b, s, hkv, hd))
 
     def decode(self, x, k_cache, v_cache, pos, pos3=None):
         """One-token decode against a KV cache, written IN PLACE.
@@ -145,7 +184,7 @@ class Attention(nn.Module):
         scores = torch.where(valid[:, None, None], scores, MASKED)
         probs = torch.softmax(scores, dim=-1)
         y = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
-        return mm(y.reshape(b, 1, h * hd), self.wo)
+        return self._out(y.reshape(b, 1, h, hd))
 
 
 # --------------------------------------------------------------------- #

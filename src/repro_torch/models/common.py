@@ -358,12 +358,14 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16, scale=None) ->
 
 
 # the ROADMAP.md queue 1 item that ports each family not yet in the port
-NOT_PORTED = {"audio": 10}
+# (every family of the reference's configs is ported)
+NOT_PORTED: dict[str, int] = {}
 
 
 def not_ported(cfg: ArchConfig) -> NotImplementedError:
     """The error for a config whose family the port does not build yet, or
-    (ported, as ``ssm`` and ``hybrid``) that another model class builds."""
+    (ported, as ``ssm``, ``hybrid`` and ``audio``) that another model class
+    builds."""
     if cfg.family not in NOT_PORTED:
         return NotImplementedError(
             f"{cfg.name}: TransformerLM does not build the {cfg.family!r} family; "

@@ -3,17 +3,20 @@ back.
 
 ``lm_params_from_jax(model, tree)`` loads the tree that the reference's
 ``init(key)`` returns, as numpy arrays, into a port ``TransformerLM``,
-``XLSTMModel`` or ``ZambaModel``: the same leaf names, each index in a
-module parameter's name (``layers.<l>``; ``macros.<i>.mlstm.<j>``,
+``XLSTMModel``, ``ZambaModel`` or ``EncDecModel``: the same leaf names,
+each index in a module parameter's name (``layers.<l>``;
+``enc_layers.<l>``, ``dec_layers.<l>``; ``macros.<i>.mlstm.<j>``,
 ``macros.<i>.mamba.<j>``) indexing the next stacked axis of the
-reference's leaf, and a name without one (Zamba2's ``shared.attn.wq``) its
-unstacked leaf; ``lm_params_to_tree`` stacks them back.
+reference's leaf, and a name without one (Zamba2's ``shared.attn.wq``,
+Whisper's ``enc_norm`` and ``frontend_proj``) its unstacked leaf;
+``lm_params_to_tree`` stacks them back.
 ``opt_state_from_jax``/``opt_state_to_tree`` do the same for
 ``training.optim``'s ``master``/``m``/``v``/``step``.  The trees are what
 ``checkpoint.manager`` writes in the reference's layout, so a training
 checkpoint of either package resumes in the other.  ``cache_from_jax``/
-``cache_to_tree`` carry a recurrent model's nested cache tree (tuples and
-dicts: Zamba2's ``attn_kv``) across.
+``cache_to_tree`` carry a recurrent or encoder-decoder model's nested cache
+tree (tuples and dicts: Zamba2's ``attn_kv``, Whisper's ``self`` and
+``cross``) across.
 Numpy and tensors only: the port never imports jax or ``ml_dtypes``.
 """
 
@@ -164,10 +167,10 @@ def opt_state_to_tree(state: dict) -> dict:
 
 
 def cache_from_jax(model: nn.Module, tree) -> dict[str, torch.Tensor]:
-    """A recurrent model's cache from the reference's nested cache tree
-    (dicts and tuples of numpy arrays or tensors), by the model's
-    ``CACHE_TREE``: a flat dict of tensors on the model's device, each in
-    its leaf's dtype."""
+    """A recurrent or encoder-decoder model's cache from the reference's
+    nested cache tree (dicts and tuples of numpy arrays or tensors), by the
+    model's ``CACHE_TREE``: a flat dict of tensors on the model's device,
+    each in its leaf's dtype."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(layout, node):

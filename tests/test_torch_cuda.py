@@ -1083,3 +1083,58 @@ def test_zamba_remat_changes_no_gradient_on_the_card(card):
     assert torch.equal(lf, ln)
     for name, a, b in zip(names, gf, gn):
         assert torch.equal(a, b), name
+
+
+# --------------------------------------------------------------------- #
+# the audio family (Whisper) on the card
+# --------------------------------------------------------------------- #
+def test_whisper_decode_on_the_card_matches_the_cpu(card):
+    """whisper-medium's smoke config: ``prefill`` of 2 x 64 frames, then 20
+    ``decode_step``s from its cache at per-slot positions, on the card
+    against the CPU on the same weights: logits within 0.1 and every cache
+    leaf within 2^-5 of its largest |x|, the bf16 bounds that
+    ``tests/test_torch_whisper.py`` holds the port to the reference with;
+    the cross memory passed on uncopied.  Then ``remat="full"`` against
+    ``"none"`` on the card: the loss and every gradient bit for bit."""
+    from repro_torch.configs.registry import get_smoke_config, override
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import ShapeSpec
+
+    cfg = get_smoke_config("whisper_medium")
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    frames = make_batch(cfg, ShapeSpec("t", 64, 2, "prefill"), seed=3, device="cpu")["frames"]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 20)))
+    with torch.no_grad():
+        got, want = gpu.prefill({"frames": frames.to(card)}), cpu.prefill({"frames": frames})
+        assert (got[0].float().cpu() - want[0].float()).abs().max() <= 0.1
+        caches = [got[1], want[1]]
+        for t in range(20):
+            pos = torch.tensor([t + 1, t // 2 + 1])
+            g, new = gpu.decode_step(caches[0], {"tokens": toks[:, t:t + 1].to(card),
+                                                 "pos": pos.to(card)})
+            assert new["cross_k"] is caches[0]["cross_k"]
+            c, caches[1] = cpu.decode_step(caches[1], {"tokens": toks[:, t:t + 1], "pos": pos})
+            caches[0] = new
+            assert torch.isfinite(g.float()).all()
+            assert (g.float().cpu() - c.float()).abs().max() <= 0.1, t
+    torch.cuda.synchronize()
+    for key in caches[1]:
+        want = caches[1][key].float()
+        gap = (caches[0][key].float().cpu() - want).abs().max()
+        assert gap <= 2.0 ** -5 * want.abs().max(), key
+    runs = []
+    for remat in ("full", "none"):
+        model = build_model(override(cfg, remat=remat), device=card)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        batch = make_batch(cfg, ShapeSpec("t", 64, 2, "train"), seed=5, device=card)
+        loss, _ = model.loss(batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, list(params.values())), list(params)))
+    (lf, gf, names), (ln, gn, _) = runs
+    assert torch.equal(lf, ln)
+    for name, a, b in zip(names, gf, gn):
+        assert torch.equal(a, b), name

@@ -5,8 +5,10 @@ and agreement with the harmonic optimum > 0.97), ``torch_dynamic_stream.py``
 (its four parts, the 8-shard mesh on the CPU included),
 ``torch_serve_lp.py``, ``torch_serve_lm.py`` (qwen3-0.6b's smoke config,
 h2o-danube-3-4b's, whose cache is a ring buffer, xlstm-350m's, whose
-cache holds recurrent states, and zamba2-7b's, whose cache holds Mamba2
-states beside the shared block's k and v) and
+cache holds recurrent states, zamba2-7b's, whose cache holds Mamba2
+states beside the shared block's k and v, and whisper-medium's, whose cache
+holds a decoder's self k and v beside the cross k and v of its encoder's
+output) and
 ``torch_semi_supervised_lm.py`` (curation, then 30 training steps of the
 smoke config: pseudo-label quality and purity > 0.9, last loss < first)."""
 
@@ -55,7 +57,8 @@ def test_serve_lp():
     assert ex.async_driver_demo("cpu").deadline_admissions >= 1
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b", "xlstm-350m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b", "xlstm-350m", "zamba2-7b",
+                                  "whisper-medium"])
 def test_serve_lm(arch):
     engine, done = _load("torch_serve_lm").main("cpu", arch=arch)
     assert len(done) == 6 and engine.steps > 0

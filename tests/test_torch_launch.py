@@ -4,7 +4,8 @@ against the JAX package's ``repro.launch``.
 - ``input_specs``/``make_batch`` for all ten configs × the ``ShapeSpec``
   kinds: shapes and dtypes equal; every leaf byte-identical (int32 draws
   and the bf16 ``vis_embeds``/``frames``, which both packages round from
-  float64 through fp32); ``synthetic_batch`` byte-identical.
+  float64 through fp32); ``synthetic_batch`` byte-identical (qwen3-0.6b's
+  and whisper-medium's smoke configs).
 - ``launch.train.main`` at qwen3-0.6b's smoke config against the
   reference's ``main``, both resumed from one step-0 checkpoint of the
   reference's ``init``: the loss lists within 0.02 (measured ≤ 0.0020;
@@ -76,15 +77,20 @@ def test_specs_and_batches_equal_the_references(name, shape):
     assert specs.vlm_split(64) == jspecs.vlm_split(64)
 
 
-def test_synthetic_batch_equals_the_reference():
-    cfg, jcfg = registry.get_smoke_config("qwen3_0_6b"), jreg.get_smoke_config("qwen3_0_6b")
+@pytest.mark.parametrize("name", ["qwen3_0_6b", "whisper_medium"])
+def test_synthetic_batch_equals_the_reference(name):
+    """Every leaf byte-identical; the audio family's ``tokens``/``labels``
+    ramp ``seq`` tokens a row, beside ``seq`` frames, as the reference's."""
+    cfg, jcfg = registry.get_smoke_config(name), jreg.get_smoke_config(name)
     for step in (0, 1, 17):
         b = train.synthetic_batch(cfg, 4, 16, step, device="cpu")
         jb = jtrain.synthetic_batch(jcfg, 4, 16, step)
         assert list(b) == list(jb)
         for k in jb:
-            assert b[k].dtype == torch.int32
+            assert tuple(b[k].shape) == jb[k].shape, (k, step)
+            assert str(b[k].dtype).split(".")[-1] == str(jb[k].dtype), (k, step)
             assert np.array_equal(_bytes(b[k]), _bytes(np.asarray(jb[k]))), (k, step)
+        assert b["tokens"].shape == (4, 16) and b["tokens"].dtype == torch.int32
 
 
 ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "6", "--batch", "4", "--seq", "16",

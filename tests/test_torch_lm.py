@@ -39,15 +39,17 @@ from repro_torch.models.api import build_model
 from repro_torch.models.blocks import MLP, Attention
 from repro_torch.models.common import ShapeSpec
 from repro_torch.models.convert import lm_params_from_jax, tensor_from_numpy
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.recurrent import XLSTMModel, ZambaModel
 from repro_torch.models.transformer import TransformerLM
 
 torch.set_num_threads(1)
 
 DENSE = ["qwen3_0_6b", "yi_6b", "deepseek_67b", "h2o_danube_3_4b"]
-# the families TransformerLM refuses: xlstm is built by XLSTMModel and zamba2
-# by ZambaModel (their parity tests are tests/test_torch_xlstm*.py and
-# tests/test_torch_zamba*.py), whisper not yet
+# the families TransformerLM refuses: xlstm is built by XLSTMModel, zamba2
+# by ZambaModel and whisper by EncDecModel (their parity tests are
+# tests/test_torch_xlstm*.py, tests/test_torch_zamba*.py and
+# tests/test_torch_whisper*.py)
 NOT_PORTED = ["xlstm_350m", "zamba2_7b", "whisper_medium"]
 # the moe and vlm families: their parity tests are tests/test_torch_moe.py
 ROUTED_AND_VLM = ["granite_moe_1b_a400m", "olmoe_1b_7b", "qwen2_vl_72b"]
@@ -110,17 +112,14 @@ def test_registry_names():
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_build_model_refuses_families_not_ported(name):
-    """``build_model`` raises for the families not ported yet; the ssm
-    family (xlstm) is ported and builds an ``XLSTMModel``, the hybrid family
-    (zamba2) a ``ZambaModel``.  ``TransformerLM`` refuses all three."""
+    """The three families ``TransformerLM`` does not build are ported by
+    other classes: the ssm family (xlstm) builds an ``XLSTMModel``, the
+    hybrid family (zamba2) a ``ZambaModel`` and the audio family (whisper)
+    an ``EncDecModel``.  ``TransformerLM`` refuses all three."""
     cfg = registry.get_smoke_config(name)
-    if name == "xlstm_350m":
-        assert isinstance(build_model(cfg, device="cpu"), XLSTMModel)
-    elif name == "zamba2_7b":
-        assert isinstance(build_model(cfg, device="cpu"), ZambaModel)
-    else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item"):
-            build_model(cfg, device="cpu")
+    want = {"xlstm_350m": XLSTMModel, "zamba2_7b": ZambaModel, "whisper_medium": EncDecModel}
+    assert isinstance(build_model(cfg, device="cpu"), want[name])
+    assert not common.NOT_PORTED
     with pytest.raises(NotImplementedError, match=cfg.family):
         TransformerLM(cfg, device="cpu")
 
