@@ -330,6 +330,30 @@ Phases (each prints its lines and its seconds; any failed check raises):
    prefill's encoder and one decode step; one training batch), within
    ``WHISPER_LAYER_TOL`` of its fp32 upcast on the same input.  Path 13
    runs no kernel but the sweep.
+19. Path 14, the launch layer.  (a) The dry run
+   (``repro_torch.launch.dryrun.lower_cell`` on the meta device, in three
+   spawned processes started once path 13 is done, each at the lowest
+   priority on one thread, so they run on the host's spare cores while
+   the card works) estimates three train cells:
+   path 9's step (qwen3-0.6b, 8 x 64), path 13's (whisper-medium, 8 x
+   1,500 frames and 187 tokens) and (b)'s hybrid step; each is measured
+   once on the card at its full published config (models drawn anew, one
+   step from a fresh optimizer state; ``max_memory_allocated`` reset at
+   the step's start with the state alive), and each estimated peak must
+   lie within ``PEAK_BAND`` of the measured one; the FLOPs and the ms
+   bound are printed beside the step's time, and the card's total memory
+   and CUDA context beside ``dryrun.HBM_BUDGET``.  (b)
+   ``make_hybrid_train_step`` on ``make_mesh((2, 1), ("data", "model"))``
+   (two data replicas on the card) trains qwen3-0.6b at its full config
+   ``HYBRID_STEPS`` steps of 8 x 64 on path 9's curated tokens, held to
+   ``make_train_step(microbatches=2)`` from the same start (run first, its
+   losses and params taken to the host): every loss within
+   ``HYBRID_LOSS_TOL``, every param within 2·Σ lr_t plus one bf16 ulp of
+   the twin's, the params' distance from the twin's at most
+   ``HYBRID_MOVE_SHARE`` of the twin's own move from the start, and at
+   least ``HYBRID_BIT_EQUAL`` of them bit-equal to the twin's; the
+   exchange's scattered and gathered bytes, and a step's ms beside path
+   9's.  Path 14 runs no kernel.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -339,12 +363,15 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import ctypes
 import gc
 import hashlib
 import importlib.util
 import json
+import multiprocessing
+import os
 import pathlib
 import re
 import shutil
@@ -401,18 +428,21 @@ from repro_torch.kernels import landmark_propagate as landmark_module  # noqa: E
 from repro_torch.kernels.landmark_propagate import ASSIGN_CHUNK, LandmarkConfig  # noqa: E402
 from repro_torch.kernels.ops import (propagate_full_ell, run_propagation,  # noqa: E402
                                      select_backend)
-from repro_torch.launch.specs import make_batch  # noqa: E402
+from repro_torch.distribution import partition as spec_partition  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import axis_rules, make_mesh  # noqa: E402
+from repro_torch.launch.specs import batch_logical, input_specs, make_batch  # noqa: E402
 from repro_torch.launch.train import checkpoint_tree, restore_into  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.common import ShapeSpec  # noqa: E402
-from repro_torch.models.convert import lm_params_to_tree, to_tree  # noqa: E402
+from repro_torch.models.convert import lm_params_to_tree, param_shapes, to_tree  # noqa: E402
 from repro_torch.models.encdec import DEC_FRAC  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.estimator import DynLabelPropagation  # noqa: E402
 from repro_torch.serving.lp_service import LPService  # noqa: E402
 from repro_torch.state import problem_from_arrays  # noqa: E402
 from repro_torch.training import optim as optim_module  # noqa: E402
-from repro_torch.training.trainer import make_train_step  # noqa: E402
+from repro_torch.training.trainer import make_hybrid_train_step, make_train_step  # noqa: E402
 from tools.gpu_timing import QueueError, enqueue, gpu_times  # noqa: E402
 
 DELTA = 1e-4
@@ -3435,8 +3465,8 @@ def phase_train(card):
           f"{peak:,} B")
     require(np.isfinite(losses).all() and losses[-1] < losses[0],
             f"path 9: loss {losses[0]} -> {losses[-1]}")
-    out = dict(sweeps=cur["sweeps"], accuracy=cur["quality"], purity=cur["purity"],
-               curate_s=curate_s, losses=losses, train_s=train_s,
+    out = dict(sweeps=cur["sweeps"], curated=cur["curated"], accuracy=cur["quality"],
+               purity=cur["purity"], curate_s=curate_s, losses=losses, train_s=train_s,
                step_ms_p50=float(np.median(steps)), step_ms_p99=float(np.percentile(steps, 99)),
                fb_ms_p50=float(np.median(fb)), opt_ms_p50=float(np.median(opt)),
                tokens_per_s=float(tok_s), step_kernel_ms=step_kernel_ms,
@@ -5095,6 +5125,232 @@ def phase_whisper(card):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the launch layer on the card (path 14)
+# --------------------------------------------------------------------- #
+HYBRID_MESH = (2, 1)  # ("data", "model"): two data replicas on the card
+HYBRID_STEPS = 3
+HYBRID_LOSS_TOL = 0.02  # the bound tests/test_torch_launch.py holds across packages
+# The 2·Σlr + 1 ulp bound alone passes any update (Adam moves a param by
+# about lr a step), so the params as a whole are held to the twin's move:
+# ||hybrid − twin|| ≤ HYBRID_MOVE_SHARE·||twin − start||, and a share of
+# them bit-equal.  At tests/test_torch_hybrid.py's smoke sizes a right step
+# gives 0.02–0.17 and 91–98%, and a step with a planted fault (replica 0's
+# gradient alone, or the params never written back) 0.90–1.09 and 15–45%.
+HYBRID_MOVE_SHARE = 0.3
+HYBRID_BIT_EQUAL = 0.75
+# an estimated peak against the measured max_memory_allocated, fixed before
+# the first run on the card
+PEAK_BAND = (0.8, 1.25)
+
+
+def launch_cells():
+    """Path 14 (a)'s train cells: (name, arch, shape, data replicas)."""
+    return [("path 9's step", LM_ARCH, ShapeSpec("path9", TRAIN_SEQ, TRAIN_BATCH, "train"), 1),
+            ("path 13's step", WHISPER_ARCH,
+             ShapeSpec("path13", WHISPER_FRAMES, WHISPER_B, "train"), 1),
+            ("path 14's hybrid step", LM_ARCH,
+             ShapeSpec("path14", TRAIN_SEQ, TRAIN_BATCH, "train"), HYBRID_MESH[0])]
+
+
+def measured_step(step_fn, state, batch):
+    """One step on the card: (ms on the host clock, ``max_memory_allocated``
+    over it, reset at its start with the state alive, the bytes allocated
+    at its start, its outputs)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step_fn(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(), base, out
+
+
+def lm_train_batches(curated, n, seed):
+    """``n`` batches as ``examples/torch_semi_supervised_lm.py::train``
+    draws them: ``TRAIN_BATCH`` curated documents, labels the next token."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, len(curated), size=TRAIN_BATCH)
+        out.append({"tokens": torch.as_tensor(curated[idx], dtype=torch.int32, device="cuda"),
+                    "labels": torch.as_tensor(np.roll(curated[idx], -1, axis=1),
+                                              dtype=torch.int32, device="cuda")})
+    return out
+
+
+def restore_params(model, start):
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(start[name])
+
+
+def phase_launch_hybrid(model, batches, opt_cfg, card):
+    """Path 14 (b): ``make_hybrid_train_step`` on ``make_mesh((2, 1),
+    ("data", "model"))`` (two data replicas on the card) against
+    ``make_train_step(microbatches=2)`` from the same start, the twin run
+    first and taken to the host.  Each loss within ``HYBRID_LOSS_TOL``,
+    each param within 2·Σ lr_t plus one bf16 ulp of the twin's value, the
+    distance from the twin's within ``HYBRID_MOVE_SHARE`` of the twin's
+    move, at least ``HYBRID_BIT_EQUAL`` of the params bit-equal."""
+    start = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    params = dict(model.named_parameters())
+    twin_step = make_train_step(model, opt_cfg, microbatches=2)
+    state, twin_losses = optim_module.init_state(params), []
+    for b in batches:
+        state, loss, _ = twin_step(state, b)
+        twin_losses.append(float(loss))
+    twin = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    del state, twin_step
+    restore_params(model, start)
+    mesh = make_mesh(HYBRID_MESH, ("data", "model"))
+    cfg, spec = model.cfg, ShapeSpec("path14", TRAIN_SEQ, TRAIN_BATCH, "train")
+    spec_partition.set_axis_rules(axis_rules(layout="tp"))
+    try:
+        shapes = param_shapes(model)
+        pspecs = spec_partition.param_specs(shapes, mesh)
+        zspecs = spec_partition.zero_specs(pspecs, shapes, mesh)
+        bspecs = spec_partition.resolve_spec_tree(input_specs(cfg, spec),
+                                                  batch_logical(cfg, spec), mesh)
+    finally:
+        spec_partition.set_axis_rules(None)
+    step = make_hybrid_train_step(model, opt_cfg, mesh, zspecs, bspecs, pspecs=pspecs)
+    state, losses, ms, peaks, bases = optim_module.init_state(params), [], [], [], []
+    for b in batches:
+        t, peak, base, (state, loss, _) = measured_step(step, state, b)
+        losses.append(float(loss))
+        ms.append(t)
+        peaks.append(peak)
+        bases.append(base)
+    del state
+    lrs = sum(float(optim_module.schedule(opt_cfg, torch.tensor(t, dtype=torch.int32)))
+              for t in range(1, len(batches) + 1))
+    worst, equal, total, gap2, move2 = -np.inf, 0, 0, 0.0, 0.0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            want = twin[name].to(p.device).float()
+            got = p.float()
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+            worst = max(worst, float(((got - want).abs() - (2 * lrs + ulp)).max()))
+            equal += int((p == twin[name].to(p.device)).sum())
+            total += p.numel()
+            gap2 += float((got - want).square().sum())
+            move2 += float((want - start[name].to(p.device).float()).square().sum())
+    del start
+    move_share = (gap2 / move2) ** 0.5
+    loss_gap = max(abs(a - b) for a, b in zip(losses, twin_losses))
+    print(f"   [{card}] (b) make_hybrid_train_step on make_mesh({HYBRID_MESH}, ('data', "
+          f"'model')) ({mesh.device_mesh}), {len(batches)} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: "
+          f"losses {[round(x, 4) for x in losses]} against make_train_step(microbatches=2)'s "
+          f"{[round(x, 4) for x in twin_losses]} (gap {loss_gap:.5f}, tolerance "
+          f"{HYBRID_LOSS_TOL}); params: worst excess over 2·Σlr ({2 * lrs:.3e}) + 1 bf16 ulp "
+          f"{worst:.3e}, distance from the twin's {move_share:.4f} of the twin's move "
+          f"(at most {HYBRID_MOVE_SHARE}), {equal / total:.4%} bit-equal (at least "
+          f"{HYBRID_BIT_EQUAL:.0%}); exchange a step "
+          f"{step.bytes['scatter'] // len(batches):,} B scattered, "
+          f"{step.bytes['gather'] // len(batches):,} B gathered")
+    print(f"   [{card}] a hybrid step {[round(x, 2) for x in ms]} ms; peaks "
+          f"{[f'{x:,}' for x in peaks]} B over {[f'{x:,}' for x in bases]} B at their starts")
+    require(loss_gap <= HYBRID_LOSS_TOL, f"path 14 (b): losses {losses} vs {twin_losses}")
+    require(worst <= 0, f"path 14 (b): a param moved {worst} past its bound")
+    require(move_share <= HYBRID_MOVE_SHARE,
+            f"path 14 (b): the params lie {move_share:.4f} of the twin's move from it")
+    require(equal / total >= HYBRID_BIT_EQUAL, f"path 14 (b): {equal / total:.4%} bit-equal")
+    return dict(hybrid_losses=losses, twin_losses=twin_losses, hybrid_ms=ms,
+                hybrid_peak=max(peaks), hybrid_base=bases[0], hybrid_bit_equal=equal / total,
+                hybrid_worst_excess=worst, hybrid_move_share=move_share, scatter_bytes=step.bytes["scatter"],
+                gather_bytes=step.bytes["gather"])
+
+
+def low_priority_worker():
+    """A process of the estimates' pool: the lowest priority, one thread,
+    so the card's host-bound loops keep their cores."""
+    os.nice(19)
+    torch.set_num_threads(1)
+
+
+def launch_estimates(pool):
+    """Path 14 (a)'s dry-run estimates submitted to ``pool`` (spawned
+    processes: they use the host's spare cores while the card works): a
+    future of ``launch.dryrun.lower_cell``'s record per cell name."""
+    return {name: pool.submit(dryrun.lower_cell, arch, spec, data_replicas=replicas)
+            for name, arch, spec, replicas in launch_cells()}
+
+
+def phase_launch(card, futures, curated9, curated13, path9_step_ms, context_bytes):
+    """Path 14: the launch layer on the card.  (a) The dry run's estimates
+    of three train cells (``futures``, from ``launch_estimates``) against
+    one measured step of each: the estimated peak within ``PEAK_BAND`` of
+    ``max_memory_allocated`` reset at the step's start with the state
+    alive; the FLOPs and the ms bound beside the step's time.  (b)
+    ``phase_launch_hybrid`` at qwen3-0.6b's full published config on path
+    9's curated tokens.  No wrapper launches: every count is set to 0
+    before and read after."""
+    reset_launches()
+    props = torch.cuda.get_device_properties(0)
+    print(f"   [{card}] total_memory {props.total_memory:,} B, CUDA context {context_bytes:,} B:"
+          f" budget {props.total_memory - context_bytes:,} B (dryrun.HBM_BUDGET "
+          f"{dryrun.HBM_BUDGET:,.0f} B)")
+    measured, out = {}, {}
+    t0 = time.perf_counter()
+    model = build_model(get_config(WHISPER_ARCH))
+    batch = whisper_batches(model.cfg, curated13, 1, seed=2, device=model.device)[0]
+    opt_cfg = optim_module.OptConfig(lr=WHISPER_LR, warmup_steps=10, total_steps=WHISPER_STEPS)
+    state = optim_module.init_state(dict(model.named_parameters()))
+    measured["path 13's step"] = measured_step(make_train_step(model, opt_cfg), state,
+                                               batch)[:3]
+    del model, batch, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(get_config(LM_ARCH))
+    batches = lm_train_batches(curated9, HYBRID_STEPS, seed=14)
+    opt_cfg = optim_module.OptConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    start = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    state = optim_module.init_state(dict(model.named_parameters()))
+    measured["path 9's step"] = measured_step(make_train_step(model, opt_cfg), state,
+                                              batches[0])[:3]
+    del state
+    restore_params(model, start)
+    del start
+    card_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(phase_launch_hybrid(model, batches, opt_cfg, card))
+    out["b_s"] = time.perf_counter() - t0
+    measured["path 14's hybrid step"] = (float(np.median(out["hybrid_ms"][1:])),
+                                         out["hybrid_peak"], out["hybrid_base"])
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    estimates = {name: f.result() for name, f in futures.items()}
+    wait_s = time.perf_counter() - t0
+    out["estimates"] = {}
+    for name, arch, spec, replicas in launch_cells():
+        est, (ms, peak, base) = estimates[name], measured[name]
+        ratio = est["memory"]["peak_estimate_bytes"] / peak
+        print(f"   [{card}] (a) {name}: {est['arch']} {spec.global_batch}x{spec.seq_len}, "
+              f"{replicas} data replica(s): estimate (meta device, {est['seconds']} s) peak "
+              f"{est['memory']['peak_estimate_bytes']:,} B (arguments "
+              f"{est['memory']['argument_bytes']:,} B), {est['cost']['flops']:.4e} FLOPs, bound "
+              f"{est['bound_ms']:.3f} ms by {est['bound_by']}; measured {ms:.2f} ms, peak "
+              f"{peak:,} B over {base:,} B at its start: estimate/measured {ratio:.4f}")
+        require(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+                f"path 14 (a): {name}'s estimated peak is {ratio:.4f}x the measured one")
+        out["estimates"][name] = dict(peak_estimate=est["memory"]["peak_estimate_bytes"],
+                                      peak=peak, ratio=ratio, flops=est["cost"]["flops"],
+                                      bound_ms=est["bound_ms"], ms=ms)
+    hybrid_ms = measured["path 14's hybrid step"][0]
+    print(f"   [{card}] the card's part of (a) {card_a_s:.1f} s, (b) {out['b_s']:.1f} s, then "
+          f"{wait_s:.1f} s waiting for the estimates; a hybrid step {hybrid_ms:.2f} ms (median "
+          f"of steps 2-{HYBRID_STEPS}) against path 9's median step {path9_step_ms:.2f} ms")
+    out["launches"] = read_launches()
+    print(f"   path 14 launches {out['launches']}")
+    require(all(n == 0 for n in out["launches"].values()),
+            f"path 14: launches {out['launches']}: the launch layer launched a kernel")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the first path's host kNN (numpy, O(N^2) over a stream) and the
@@ -5117,6 +5373,8 @@ def main(argv=None) -> int:
         print(f"   nvidia-smi: {card}")
         print(f"   torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        free, total = torch.cuda.mem_get_info()
+        context_bytes = total - free  # nothing allocated yet: the CUDA context
         lib = load_library()
         print(f"   built {lib.path.relative_to(REPO)} in {lib.seconds:.1f} s "
               f"(fresh build: {lib.built})")
@@ -5163,6 +5421,14 @@ def main(argv=None) -> int:
         out12 = phase_zamba(card)
     with Phase(f"path 13: {WHISPER_ARCH} transcribes, serves and trains at its full config"):
         out13 = phase_whisper(card)
+    # path 14 (a)'s dry-run estimates run in spawned processes beside path 14
+    with concurrent.futures.ProcessPoolExecutor(
+            len(launch_cells()), mp_context=multiprocessing.get_context("spawn"),
+            initializer=low_priority_worker) as pool:
+        futures = launch_estimates(pool)
+        with Phase("path 14: the launch layer: the dry run against the card, the hybrid step"):
+            out14 = phase_launch(card, futures, out9["curated"], out13["curated"],
+                                 out9["step_ms_p50"], context_bytes)
     # every kernel's launches as read on each path, for every path
     paths = dict(path1=dyn_launches, path2=out2["launches"], path3=out3["launches"],
                  path4=out4["launches"], path5=out5["launches"], path5_full=full5["launches"],
@@ -5170,7 +5436,7 @@ def main(argv=None) -> int:
                  **{f"path7_{name}": n for name, n in out7["launches"].items()},
                  path7b=out7b["launches"], path8=out8["launches"], path9=out9["launches"],
                  path10=out10["launches"], path11=out11["launches"], path12=out12["launches"],
-                 path13=out13["launches"])
+                 path13=out13["launches"], path14=out14["launches"])
 
     def per_path(key):
         return {f"{name}_launches": counts[key] for name, counts in paths.items()}

@@ -1,1 +1,2 @@
-"""Input specs and the training driver (counterpart of ``repro.launch``)."""
+"""Input specs, meshes, platform setup, the training driver and the dry run
+(counterpart of ``repro.launch``)."""

@@ -7,8 +7,8 @@ does, so its int32 leaves are the reference's bytes; its bf16 leaves
 (``vis_embeds``, ``frames``) are float64 draws rounded as the reference
 rounds them, through fp32 (``torch``'s conversion from float64 and
 ``jnp.asarray(..., bfloat16)`` give the same bits).  ``batch_logical``
-needs ``distribution.partition`` and waits for it (``ROADMAP.md`` queue 1,
-item 11).
+gives the batch's logical axes, keyed as the batch, for
+``distribution.partition.resolve_spec_tree``.
 
 Layouts:
   decoder-only train : tokens (B,S) + labels (B,S)
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distribution.partition import Axes
 from repro_torch.models.common import ArchConfig, ShapeSpec
 
 I32 = torch.int32
@@ -66,6 +67,21 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, torch.Tensor]:
     if cfg.family == "vlm":
         batch["pos3"] = _meta((3, b, 1), I32)
     return batch
+
+
+def batch_logical(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Axes]:
+    """Logical-axis tree matching ``input_specs`` (for resolve_spec_tree)."""
+    out = {}
+    for k, spec in input_specs(cfg, shape).items():
+        if k == "pos":
+            out[k] = Axes()
+        elif k == "pos3":
+            out[k] = Axes(None, "dp", None)
+        elif spec.ndim == 3:  # vis_embeds / frames
+            out[k] = Axes("dp", None, None)
+        else:  # tokens / labels
+            out[k] = Axes(*(["dp"] + [None] * (spec.ndim - 1)))
+    return out
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,

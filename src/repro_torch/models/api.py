@@ -22,7 +22,9 @@ def build_model(cfg: ArchConfig, device: str | torch.device | None = None,
     """The model of ``cfg`` on ``device`` (``None`` → ``cuda``), its bf16
     weights (the MoE router's, the xLSTM gates' and Mamba2's ``a_log``,
     ``d_skip`` and ``dt_bias`` fp32) drawn from a generator seeded with
-    ``seed``.  ``TransformerLM`` raises for a family it does not build."""
+    ``seed``; on ``device="meta"`` shapes and dtypes only, no storage and no
+    draws (the dry run's build).  ``TransformerLM`` raises for a family it
+    does not build."""
     if cfg.enc_dec:
         return EncDecModel(cfg, device=device, seed=seed)
     if cfg.family == "ssm" and cfg.xlstm is not None:

@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 
 # --------------------------------------------------------------------- #
 # Configs
@@ -346,11 +348,33 @@ def attention(q, k, v, *, causal=True, window=None, impl="auto", q_chunk=1024,
 # --------------------------------------------------------------------- #
 # Initialization
 # --------------------------------------------------------------------- #
-def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16, scale=None) -> torch.Tensor:
+class MetaGenerator:
+    """The generator of a model built on the meta device (shapes and dtypes,
+    no storage; the counterpart of ``jax.eval_shape(model.init, key)``):
+    torch has no generator there, and ``dense_init`` draws nothing."""
+
+    device = torch.device("meta")
+
+
+def make_generator(device: str | torch.device | None, seed: int):
+    """The generator a model draws its weights from: a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (``None`` → ``cuda``; raises without
+    one), or a ``MetaGenerator`` on the meta device."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def dense_init(gen: torch.Generator | MetaGenerator, shape, dtype=torch.bfloat16,
+               scale=None) -> torch.Tensor:
     """N(0, std²) drawn in fp32 from ``gen`` (on ``gen``'s device), then
     cast; std = 1/sqrt(fan_in) unless ``scale`` is given.  The draws are
     torch's, not jax.random's: carry the reference's weights across with
-    ``models.convert.lm_params_from_jax``."""
+    ``models.convert.lm_params_from_jax``.  On the meta device an empty
+    tensor of the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)

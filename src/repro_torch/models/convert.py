@@ -9,7 +9,8 @@ each index in a module parameter's name (``layers.<l>``;
 ``macros.<i>.mamba.<j>``) indexing the next stacked axis of the
 reference's leaf, and a name without one (Zamba2's ``shared.attn.wq``,
 Whisper's ``enc_norm`` and ``frontend_proj``) its unstacked leaf;
-``lm_params_to_tree`` stacks them back.
+``lm_params_to_tree`` stacks them back, and ``param_shapes`` gives the
+stacked tree's shapes (meta tensors) for the partition specs.
 ``opt_state_from_jax``/``opt_state_to_tree`` do the same for
 ``training.optim``'s ``master``/``m``/``v``/``step``.  The trees are what
 ``checkpoint.manager`` writes in the reference's layout, so a training
@@ -128,6 +129,20 @@ def _put(tree: dict, key: tuple[str, ...], leaf) -> None:
     tree[key[-1]] = leaf
 
 
+def param_shapes(model: nn.Module) -> dict:
+    """The reference's param tree of ``model`` as meta tensors (shape and
+    dtype, no storage; ``jax.eval_shape(model.init, key)``'s counterpart),
+    each per-layer family stacked as ``lm_params_to_tree`` stacks it: the
+    tree ``distribution.partition.param_specs`` reads."""
+    named = dict(model.named_parameters())
+    counts = _stack_counts(named)
+    tree: dict = {}
+    for name, p in named.items():
+        key, _ = _ref_key(name)
+        _put(tree, key, torch.empty(counts[key] + tuple(p.shape), dtype=p.dtype, device="meta"))
+    return tree
+
+
 def lm_params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
     """Replace every parameter of ``model`` by the reference tree's leaf of
     the same name (numpy arrays, or tensors as ``checkpoint.manager.restore``
@@ -166,26 +181,34 @@ def opt_state_to_tree(state: dict) -> dict:
             "step": state["step"].detach()}
 
 
+def flatten_by_layout(layout, tree) -> dict:
+    """The leaves of a nested tree (dicts and tuples) keyed by the names
+    that ``layout``, a tree of the same structure with string leaves (a
+    model's ``CACHE_TREE``), puts in their places."""
+    out: dict = {}
+
+    def walk(lay, node):
+        if isinstance(lay, str):
+            out[lay] = node
+        elif isinstance(lay, dict):
+            for key in lay:
+                walk(lay[key], node[key])
+        else:
+            assert len(lay) == len(node), (lay, len(node))
+            for sub, leaf in zip(lay, node):
+                walk(sub, leaf)
+
+    walk(layout, tree)
+    return out
+
+
 def cache_from_jax(model: nn.Module, tree) -> dict[str, torch.Tensor]:
     """A recurrent or encoder-decoder model's cache from the reference's
     nested cache tree (dicts and tuples of numpy arrays or tensors), by the
     model's ``CACHE_TREE``: a flat dict of tensors on the model's device,
     each in its leaf's dtype."""
-    out: dict[str, torch.Tensor] = {}
-
-    def walk(layout, node):
-        if isinstance(layout, str):
-            out[layout] = _as_tensor(node).to(model.device, copy=True)
-        elif isinstance(layout, dict):
-            for key in layout:
-                walk(layout[key], node[key])
-        else:
-            assert len(layout) == len(node), (layout, len(node))
-            for sub, leaf in zip(layout, node):
-                walk(sub, leaf)
-
-    walk(model.CACHE_TREE, tree)
-    return out
+    return {key: _as_tensor(leaf).to(model.device, copy=True)
+            for key, leaf in flatten_by_layout(model.CACHE_TREE, tree).items()}
 
 
 def cache_to_tree(model: nn.Module, cache: dict[str, torch.Tensor]):

@@ -30,9 +30,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.distribution.partition import Axes
 from repro_torch.models.blocks import MLP, Attention, _ones, _param
-from repro_torch.models.common import ArchConfig, dense_init, mm, rms_norm
+from repro_torch.models.common import ArchConfig, dense_init, make_generator, mm, rms_norm
+from repro_torch.models.convert import flatten_by_layout
 from repro_torch.models.transformer import _xent
 
 DEC_FRAC = 8  # decoder seq = encoder seq // DEC_FRAC for train/prefill shapes
@@ -108,7 +109,7 @@ class EncDecModel(nn.Module):
         super().__init__()
         assert cfg.enc_dec and cfg.n_enc_layers > 0
         self.cfg = cfg
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        gen = make_generator(device, seed)
         self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
@@ -176,6 +177,13 @@ class EncDecModel(nn.Module):
         return loss, {"xent": loss}
 
     # ---------------------------- serving ----------------------------- #
+    def cache_logical(self) -> dict[str, Axes]:
+        """Logical axes of ``cache_shape``'s leaves, keyed as the flat cache
+        (the reference's tree through ``CACHE_TREE``)."""
+        kv = Axes(None, "dp", None, "tp", None)
+        return flatten_by_layout(self.CACHE_TREE, {"self": {"k": kv, "v": kv},
+                                                   "cross": {"k": kv, "v": kv}})
+
     def cache_shape(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
         """The cache's leaves as meta tensors: the self k and v over
         ``DEC_MAX`` positions and the cross k and v over ``s_max`` frames,

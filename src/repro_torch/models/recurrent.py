@@ -34,9 +34,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.distribution.partition import Axes
 from repro_torch.models.blocks import MLSTM, SLSTM, Mamba2, _ones, _param
-from repro_torch.models.common import ArchConfig, dense_init, mm, rms_norm
+from repro_torch.models.common import ArchConfig, dense_init, make_generator, mm, rms_norm
+from repro_torch.models.convert import flatten_by_layout
 from repro_torch.models.ssd import NEG_INF
 from repro_torch.models.transformer import Block, _xent
 
@@ -97,7 +98,7 @@ class XLSTMModel(nn.Module):
         se = cfg.xlstm.slstm_every
         self.n_macro = max(1, cfg.n_layers // se)
         self.m_per_macro = se - 1
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        gen = make_generator(device, seed)
         self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
@@ -157,6 +158,26 @@ class XLSTMModel(nn.Module):
         return loss, {"xent": loss}
 
     # ---------------------------- serving ----------------------------- #
+    def cache_logical(self) -> dict[str, Axes]:
+        """Logical axes of ``cache_shape``'s leaves, keyed as the flat cache
+        (the reference's tree through ``CACHE_TREE``)."""
+        return flatten_by_layout(self.CACHE_TREE, {
+            "mlstm": (
+                Axes(None, None, "dp", None, "tp"),  # conv tail
+                (
+                    Axes(None, None, "dp", "tp", None, None),  # S̃ (falls to hd)
+                    Axes(None, None, "dp", "tp", None),  # ñ
+                    Axes(None, None, "dp", "tp"),  # m
+                ),
+            ),
+            "slstm": (
+                Axes(None, "dp", "tp", None),
+                Axes(None, "dp", "tp", None),
+                Axes(None, "dp", "tp", None),
+                Axes(None, "dp", "tp"),
+            ),
+        })
+
     def cache_shape(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
         """The cache's leaves as meta tensors: the mLSTM's conv tail
         ``(nm, mm, B, cw-1, d_in)`` bf16 and ``S̃ (nm, mm, B, h, hd, hd)``,
@@ -252,7 +273,7 @@ class ZambaModel(nn.Module):
         self.cfg = cfg
         self.m_per_macro = cfg.attn_every
         self.n_macro = max(1, round(cfg.n_layers / (cfg.attn_every + 1)))
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        gen = make_generator(device, seed)
         self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
@@ -325,6 +346,21 @@ class ZambaModel(nn.Module):
         return loss, {"xent": loss}
 
     # ---------------------------- serving ----------------------------- #
+    def cache_logical(self) -> dict[str, Axes]:
+        """Logical axes of ``cache_shape``'s leaves, keyed as the flat cache
+        (the reference's tree through ``CACHE_TREE``)."""
+        return flatten_by_layout(self.CACHE_TREE, {
+            "mamba": (
+                Axes(None, None, "dp", None, "tp"),  # conv tail x
+                Axes(None, None, "dp", None, "tp"),  # conv tail bc
+                Axes(None, None, "dp", "tp", None, None),  # ssm state
+            ),
+            "attn_kv": {
+                "k": Axes(None, "dp", None, "tp", None),
+                "v": Axes(None, "dp", None, "tp", None),
+            },
+        })
+
     def cache_shape(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
         """The cache's leaves as meta tensors: the Mamba2 layers' conv tails
         ``(nm, mm, B, cw-1, d_in)`` and ``(nm, mm, B, cw-1, 2·d_state)``

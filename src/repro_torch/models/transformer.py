@@ -22,9 +22,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.distribution.partition import Axes
 from repro_torch.models.blocks import MLP, Attention, MoE, _ones, _param
-from repro_torch.models.common import ArchConfig, dense_init, mm, not_ported, rms_norm
+from repro_torch.models.common import (ArchConfig, dense_init, make_generator, mm, not_ported,
+                                        rms_norm)
 
 
 def _xent(logits, labels, mask=None):
@@ -90,7 +91,7 @@ class TransformerLM(nn.Module):
         if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
             raise not_ported(cfg)
         self.cfg = cfg
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        gen = make_generator(device, seed)
         self.embed = _param(dense_init(gen, (cfg.vocab, cfg.d_model), scale=1.0))
         self.final_norm = _ones(cfg.d_model, gen)
         if not cfg.tie_embeddings:
@@ -157,6 +158,11 @@ class TransformerLM(nn.Module):
         return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
     # ---------------------------- serving ----------------------------- #
+    def cache_logical(self) -> dict[str, Axes]:
+        """Logical axes of ``cache_shape``'s leaves, keyed as the cache."""
+        kv = Axes(None, "dp", None, "tp", None)  # (L, B, S, Hkv, hd)
+        return {"k": kv, "v": kv}
+
     def cache_shape(self, batch_size: int, s_max: int) -> dict[str, torch.Tensor]:
         """The cache's leaves as meta tensors (shape and dtype, no storage)."""
         cfg = self.cfg

@@ -94,24 +94,38 @@ def _device(params) -> torch.device:
     return next(iter(params.values())).device if params else torch.device("cpu")
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of the per-leaf sums of squares, the leaves in the
-    reference's order (a stacked leaf's sum is its layers' sums).  The sums
-    run in fp64 and round once to fp32 before the fp32 sqrt: within an fp32
-    rounding of the reference's fp32 sums, and the same bits on the CPU and
-    on the card, whose reduction orders differ."""
+def square_sum(g: torch.Tensor) -> torch.Tensor:
+    """A leaf's (or a slice's) sum of squares in fp64."""
+    return torch.sum(g.to(torch.float64) ** 2)
+
+
+def norm_of_sums(leaf_sums: dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of the per-leaf fp64 sums of squares (keyed by
+    parameter name), the leaves in the reference's order (a stacked leaf's
+    sum is its layers' sums), rounded once to fp32 before the fp32 sqrt."""
     sums: dict[str, torch.Tensor] = {}
-    for name, g in tree.items():
-        s = torch.sum(g.to(torch.float64) ** 2)
+    for name, s in leaf_sums.items():
         path = ref_path(name)
         sums[path] = s if path not in sums else sums[path] + s
     order = sorted(sums, key=lambda p: p.split("/"))
     return torch.sqrt(torch.sum(torch.stack([sums[p] for p in order])).to(torch.float32))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
-    """(fp32 grads scaled by ``min(1, max_norm / max(norm, 1e-9))``, norm)."""
-    norm = global_norm(grads)
+def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global norm of ``tree``.  The sums run in fp64 and round once to
+    fp32 before the fp32 sqrt: within an fp32 rounding of the reference's
+    fp32 sums, and the same bits on the CPU and on the card, whose
+    reduction orders differ."""
+    return norm_of_sums({name: square_sum(g) for name, g in tree.items()})
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None):
+    """(fp32 grads scaled by ``min(1, max_norm / max(norm, 1e-9))``, norm);
+    ``norm`` is ``global_norm(grads)`` unless given (the norm of a whole
+    gradient of which ``grads`` holds slices)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(f32(max_norm, norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: g.to(torch.float32) * scale for n, g in grads.items()}, norm
 
@@ -125,13 +139,16 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def update(opt_cfg: OptConfig, state: dict, grads: dict[str, torch.Tensor],
-           param_dtypes: dict[str, torch.dtype]) -> tuple[dict[str, torch.Tensor], dict]:
+           param_dtypes: dict[str, torch.dtype],
+           norm: torch.Tensor | None = None) -> tuple[dict[str, torch.Tensor], dict]:
     """Returns (new working params, new state).  ``param_dtypes`` maps each
     name to its param's dtype, so the working copy matches the model's
-    storage dtypes."""
+    storage dtypes.  Every op but the clip's norm is elementwise, so
+    ``state`` and ``grads`` may hold slices of the leaves (a data replica's
+    share) when ``norm`` gives the whole gradient's global norm."""
     step = state["step"] + 1
     lr = schedule(opt_cfg, step)
-    g32, _ = clip_by_global_norm(grads, opt_cfg.clip_norm)
+    g32, _ = clip_by_global_norm(grads, opt_cfg.clip_norm, norm)
     b1, b2 = opt_cfg.beta1, opt_cfg.beta2
     t = step.to(torch.float32)
     bc1 = 1 - _rounded(torch.pow, f32(b1, t), t)
