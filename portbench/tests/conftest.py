@@ -1,0 +1,9 @@
+"""Shared fixtures of the benchmark's own tests (CPU; card tests skip)."""
+
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
