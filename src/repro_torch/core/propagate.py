@@ -14,16 +14,18 @@ uses the same order and no fused multiply-add, gives the same bits.  Do not
 into one FMA and move a row's update by one ULP.
 
 The loops run on the host, one sweep per iteration, and check the frontier
-with one device-to-host sync per sweep.
+with one device-to-host sync per sweep (``frontier_live``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.graph.structures import PAD
 
 
@@ -147,6 +149,18 @@ def _max_abs(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax()
 
 
+def frontier_live(frontier: torch.Tensor) -> bool:
+    """Whether any row is left on the frontier: the loop's one host sync a
+    sweep.  While the recorder is on, the host's time blocked in it goes to
+    the ``solve.host_wait_ns`` counter."""
+    if not telemetry.enabled():
+        return bool(frontier.any())
+    t0 = time.perf_counter_ns()
+    live = bool(frontier.any())
+    telemetry.count("solve.host_wait_ns", time.perf_counter_ns() - t0)
+    return live
+
+
 def _delta(delta, device) -> torch.Tensor:
     """δ as a float32 scalar on ``device``, made there (``torch.tensor``
     from a Python float would copy it from the host and wait for the copy)."""
@@ -173,7 +187,7 @@ def propagate(
     frontier = frontier0 & problem.valid
     it = 0
     resid = torch.zeros((), dtype=torch.float32, device=problem.device)
-    while it < max_iters and bool(frontier.any()):
+    while it < max_iters and frontier_live(frontier):
         fu = torch.where(frontier, lp_update(problem, f), f)
         step = (fu - f).abs()
         changed = step > delta

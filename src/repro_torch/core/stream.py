@@ -93,6 +93,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import distributed
 from repro_torch.core.components import compact_labels, component_order
 from repro_torch.core.dynlp import gprime_components
@@ -139,6 +140,7 @@ class StreamStats:
 @dataclasses.dataclass
 class _Pending:
     job: concurrent.futures.Future | None  # the solve; None for a no-op Δ_t
+    batch: int  # the Δ_t's index (``StreamEngine.batches`` at its submit)
     unl_ids: np.ndarray
     t0: float
     num_components: int
@@ -657,33 +659,35 @@ class StreamEngine:
         self.bucket_keys.add(key)
         return slots[gen], first
 
-    def _solve(self, problem, f0, frontier, st: _Staging, slot, ready) -> PropagateResult:
-        """The worker thread's job: the solve, on the side streams behind
-        ``ready`` (one event per device), finished before the job
-        returns."""
-        if st.plan is not None:
-            with contextlib.ExitStack() as streams:
-                for dev, side in self._sides.items():
-                    side.wait_event(ready[dev])
-                    streams.enter_context(torch.cuda.stream(side))
-                res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
-                                          max_iters=self.max_iters, backend=st.backend,
-                                          shard_plan=st.plan, slot=slot,
-                                          num_slots=st.num_slots or None)
-                for side in self._sides.values():
-                    side.synchronize()
+    def _solve(self, problem, f0, frontier, st: _Staging, slot, ready,
+               batch: int) -> PropagateResult:
+        """The worker thread's job: the solve of Δ_t ``batch``, on the side
+        streams behind ``ready`` (one event per device), finished before the
+        job returns."""
+        with telemetry.span("solve.run", batch=batch):
+            if st.plan is not None:
+                with contextlib.ExitStack() as streams:
+                    for dev, side in self._sides.items():
+                        side.wait_event(ready[dev])
+                        streams.enter_context(torch.cuda.stream(side))
+                    res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
+                                              max_iters=self.max_iters, backend=st.backend,
+                                              shard_plan=st.plan, slot=slot,
+                                              num_slots=st.num_slots or None)
+                    for side in self._sides.values():
+                        side.synchronize()
+                return res
+            if self._side is not None:
+                self._side.wait_event(ready[self.device])
+            tiled = {}
+            if st.backend == "bsr":
+                tiled = dict(slot=slot, num_slots=st.num_slots, block_size=self._bsr_block)
+            res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
+                                      max_iters=self.max_iters, backend=st.backend,
+                                      device=self.device, stream=self._side, **tiled)
+            if self._side is not None:
+                self._side.synchronize()
             return res
-        if self._side is not None:
-            self._side.wait_event(ready[self.device])
-        tiled = {}
-        if st.backend == "bsr":
-            tiled = dict(slot=slot, num_slots=st.num_slots, block_size=self._bsr_block)
-        res = ops.run_propagation(problem, f0, frontier, delta=self.delta,
-                                  max_iters=self.max_iters, backend=st.backend,
-                                  device=self.device, stream=self._side, **tiled)
-        if self._side is not None:
-            self._side.synchronize()
-        return res
 
     # ------------------------------------------------------------------ #
     def submit(self, batch: BatchUpdate) -> StreamStats | None:
@@ -691,6 +695,10 @@ class StreamEngine:
         stats of the PREVIOUS batch (None on the first call)."""
         if self._closed:
             raise RuntimeError("StreamEngine is closed")
+        with telemetry.span("engine.submit", batch=self.batches):
+            return self._submit(batch)
+
+    def _submit(self, batch: BatchUpdate) -> StreamStats | None:
         t0 = time.perf_counter()
         g = self.graph
         dev = self.device
@@ -704,7 +712,8 @@ class StreamEngine:
                 ins_labels=np.asarray(batch.ins_labels)[order])
 
         # ---- Step 1: change adjustment & sparsification (host) ----
-        effect = g.apply_batch(batch, tau=self.tau, selector=self.ingestor)
+        with telemetry.span("graph.apply_batch"):
+            effect = g.apply_batch(batch, tau=self.tau, selector=self.ingestor)
         m = len(effect.new_ids)
         if self._lm is not None:
             self._note_touched(effect)
@@ -715,81 +724,88 @@ class StreamEngine:
             # no-op Δ_t: the solve would run zero sweeps, so nothing is
             # staged or queued; the batch still commits at drain
             prev = self.drain()
-            self.batches += 1
             unl_ids = np.flatnonzero(g.alive & (g.labels == UNLABELED))
             self._pending = _Pending(
-                job=None, unl_ids=unl_ids, t0=t0, num_components=0, frontier_size=0,
-                bucket=(0, 0), recompiled=False, transport="none", backend="none",
-                view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy())
+                job=None, batch=self.batches, unl_ids=unl_ids, t0=t0, num_components=0,
+                frontier_size=0, bucket=(0, 0), recompiled=False, transport="none",
+                backend="none", view_labels=g.labels.copy(), view_alive=g.alive.copy(),
+                view_f=g.f.copy())
+            self.batches += 1
             return prev
 
-        # ---- the landmark gate, before the snapshot build (the hot
-        # restriction changes the rung this Δ_t lands in) ----
-        hot = self._landmark_gate() if self._lm is not None else None
-        cold_ids = (None if hot is None
-                    else np.flatnonzero(g.alive & (g.labels == UNLABELED) & ~hot))
+        with telemetry.span("stage.build"):
+            # the landmark gate, before the snapshot build (the hot
+            # restriction changes the rung this Δ_t lands in)
+            hot = self._landmark_gate() if self._lm is not None else None
+            cold_ids = (None if hot is None
+                        else np.flatnonzero(g.alive & (g.labels == UNLABELED) & ~hot))
 
-        # ---- stage batch t while batch t-1 still propagates ----
-        host = build_host_problem(g, max_degree=self.max_degree, auto_bucket=True,
-                                  row_multiple=self._row_multiple, max_k=self.max_k,
-                                  warned=self._max_k_warned, hot=hot)
-        if hot is not None:
-            # the hot/cold contract overrides the rung's registry scan: a
-            # hot problem is small by design, and an exact backend there
-            # would mislabel approximate batches
-            self._backend_modes[host.bucket_key] = "landmark"
-        u = len(host.unl_ids)
-        u_pad = len(host.valid)
-        frontier = np.zeros(u_pad, bool)
-        aff_rows = host.remap[effect.affected]
-        frontier[aff_rows[aff_rows >= 0]] = True
+            # ---- stage batch t while batch t-1 still propagates ----
+            host = build_host_problem(g, max_degree=self.max_degree, auto_bucket=True,
+                                      row_multiple=self._row_multiple, max_k=self.max_k,
+                                      warned=self._max_k_warned, hot=hot)
+            if hot is not None:
+                # the hot/cold contract overrides the rung's registry scan: a
+                # hot problem is small by design, and an exact backend there
+                # would mislabel approximate batches
+                self._backend_modes[host.bucket_key] = "landmark"
+            u = len(host.unl_ids)
+            u_pad = len(host.valid)
+            frontier = np.zeros(u_pad, bool)
+            aff_rows = host.remap[effect.affected]
+            frontier[aff_rows[aff_rows >= 0]] = True
         # a bsr batch stages its rows in component order; ``host`` stays in
         # the original order for the supernode init and f0 below, which
         # map through ``st.rows``/``st.perm``
-        st = self._stage_mesh(host) if self.mesh is not None else self._stage_single(host)
-        problem, recompiled = self._commit(st.staged, st.plan)
-        put = st.plan.put_row if st.plan is not None else (lambda a: torch.from_numpy(a).to(dev))
-        frontier_dev = put(frontier if st.perm is None else frontier[st.perm])
-        slot_dev = None if st.slot is None else put(st.slot)
+        with telemetry.span("stage.resolve"):
+            st = self._stage_mesh(host) if self.mesh is not None else self._stage_single(host)
+        with telemetry.span("stage.commit"):
+            problem, recompiled = self._commit(st.staged, st.plan)
+            put = (st.plan.put_row if st.plan is not None
+                   else (lambda a: torch.from_numpy(a).to(dev)))
+            frontier_dev = put(frontier if st.perm is None else frontier[st.perm])
+            slot_dev = None if st.slot is None else put(st.slot)
 
         # ---- Step 2: supernode label initialization (as DynLP.step) ----
         n_components = 0
-        new_unl = effect.new_ids[g.labels[effect.new_ids] == UNLABELED]
-        if m and len(new_unl):
-            comp_local = gprime_components(effect, m, dev)
-            local_idx = torch.from_numpy(new_unl - effect.new_ids[0]).to(dev)
-            comp = compact_labels(comp_local)[local_idx]
-            n_components = int(comp.max()) + 1
-            rows = host.remap[new_unl]
-            f_init = supernode_init(comp, torch.from_numpy(host.wl0[rows]).to(dev),
-                                    torch.from_numpy(host.wl1[rows]).to(dev),
-                                    num_segments=max(m, 1))
-            g.f[new_unl] = f_init.cpu().numpy()
+        with telemetry.span("stage.init"):
+            new_unl = effect.new_ids[g.labels[effect.new_ids] == UNLABELED]
+            if m and len(new_unl):
+                comp_local = gprime_components(effect, m, dev)
+                local_idx = torch.from_numpy(new_unl - effect.new_ids[0]).to(dev)
+                comp = compact_labels(comp_local)[local_idx]
+                n_components = int(comp.max()) + 1
+                rows = host.remap[new_unl]
+                f_init = supernode_init(comp, torch.from_numpy(host.wl0[rows]).to(dev),
+                                        torch.from_numpy(host.wl1[rows]).to(dev),
+                                        num_segments=max(m, 1))
+                g.f[new_unl] = f_init.cpu().numpy()
 
         # ---- drain batch t-1: f0 below reads its labels ----
         prev = self.drain()
 
         # ---- Step 3: queue this batch's solve ----
-        f0 = np.full(u_pad, 0.5, np.float32)
-        f0[:u] = g.f[host.unl_ids]
-        f0_dev = put(f0 if st.perm is None else f0[st.perm])
-        ready = {}  # after every staged tensor, the slot map too, on each device
-        for d in self._sides:
-            ready[d] = torch.cuda.Event()
-            ready[d].record(torch.cuda.current_stream(d))
-        job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, st, slot_dev,
-                                  ready)
-        self.recompile_count += recompiled
-        self.batches += 1
-        self._pending = _Pending(
-            job=job, unl_ids=host.unl_ids, t0=t0, num_components=n_components,
-            frontier_size=int(frontier.sum()), bucket=host.bucket_key,
-            recompiled=recompiled, transport=st.transport, backend=st.backend, rows=st.rows,
-            cold_ids=cold_ids,
-            # labels/alive fixed by apply_batch; f holds batch t-1's
-            # committed labels plus this batch's supernode inits
-            view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy(),
-            keep=(problem, f0_dev, frontier_dev, slot_dev))
+        with telemetry.span("stage.queue"):
+            f0 = np.full(u_pad, 0.5, np.float32)
+            f0[:u] = g.f[host.unl_ids]
+            f0_dev = put(f0 if st.perm is None else f0[st.perm])
+            ready = {}  # after every staged tensor, the slot map too, on each device
+            for d in self._sides:
+                ready[d] = torch.cuda.Event()
+                ready[d].record(torch.cuda.current_stream(d))
+            job = self._worker.submit(self._solve, problem, f0_dev, frontier_dev, st, slot_dev,
+                                      ready, self.batches)
+            self.recompile_count += recompiled
+            self._pending = _Pending(
+                job=job, batch=self.batches, unl_ids=host.unl_ids, t0=t0,
+                num_components=n_components, frontier_size=int(frontier.sum()),
+                bucket=host.bucket_key, recompiled=recompiled, transport=st.transport,
+                backend=st.backend, rows=st.rows, cold_ids=cold_ids,
+                # labels/alive fixed by apply_batch; f holds batch t-1's
+                # committed labels plus this batch's supernode inits
+                view_labels=g.labels.copy(), view_alive=g.alive.copy(), view_f=g.f.copy(),
+                keep=(problem, f0_dev, frontier_dev, slot_dev))
+            self.batches += 1
         return prev
 
     # ------------------------------------------------------------------ #
@@ -803,27 +819,32 @@ class StreamEngine:
         p, self._pending = self._pending, None
         if p is None:
             return None
-        if p.job is None:  # no-op batch: nothing was solved
-            iterations, converged, resid = 0, True, 0.0
-        else:
-            res = p.job.result()  # re-raises a failed solve here
-            f = res.f.cpu().numpy()
-            solved = f[p.rows] if p.rows is not None else f[: len(p.unl_ids)]
-            self.graph.f[p.unl_ids] = solved
-            p.view_f[p.unl_ids] = solved
-            iterations, converged, resid = res.iterations, res.converged, res.max_residual
-            if p.transport in self.transport_bytes:
-                self.transport_bytes[p.transport] += res.transport_bytes
-                self.transport_sweeps[p.transport] += res.iterations
-        if p.cold_ids is not None:
-            self._landmark_commit(p)
-        self.commits += 1
-        self._view = LabelView(f=p.view_f, labels=p.view_labels,
-                               alive=p.view_alive, commit_id=self.commits)
-        # republish only once a device reader exists: engines that never
-        # serve device reads pay nothing per commit
-        if self._device_view is not None:
-            self._device_view = self._publish(self._view)
+        with telemetry.span("engine.drain", batch=p.batch):
+            res = None  # a no-op batch: nothing was solved
+            if p.job is not None:
+                with telemetry.span("engine.drain_wait"):
+                    res = p.job.result()  # re-raises a failed solve here
+            with telemetry.span("engine.fold"):
+                iterations, converged, resid = 0, True, 0.0
+                if res is not None:
+                    f = res.f.cpu().numpy()
+                    solved = f[p.rows] if p.rows is not None else f[: len(p.unl_ids)]
+                    self.graph.f[p.unl_ids] = solved
+                    p.view_f[p.unl_ids] = solved
+                    iterations, converged, resid = (res.iterations, res.converged,
+                                                    res.max_residual)
+                    if p.transport in self.transport_bytes:
+                        self.transport_bytes[p.transport] += res.transport_bytes
+                        self.transport_sweeps[p.transport] += res.iterations
+                if p.cold_ids is not None:
+                    self._landmark_commit(p)
+                self.commits += 1
+                self._view = LabelView(f=p.view_f, labels=p.view_labels,
+                                       alive=p.view_alive, commit_id=self.commits)
+                # republish only once a device reader exists: engines that
+                # never serve device reads pay nothing per commit
+                if self._device_view is not None:
+                    self._device_view = self._publish(self._view)
         return StreamStats(
             iterations=iterations, converged=converged,
             num_components=p.num_components, frontier_size=p.frontier_size,

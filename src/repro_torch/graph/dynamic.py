@@ -36,6 +36,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import telemetry
+
 from .knn import (
     normalize_rows,
     pair_weights,
@@ -283,140 +285,150 @@ class DynamicGraph:
         changed_lists: list[np.ndarray] = []
 
         # --- deletions: kill rows, drop every list entry pointing at them ---
-        del_ids = np.unique(np.asarray(batch.del_ids, np.int64))
-        del_ids = del_ids[(del_ids >= 0) & (del_ids < self.num_nodes)]
-        del_ids = del_ids[self.alive[del_ids]]
-        if len(del_ids):
-            sel_impl.on_delete(self, del_ids)
-            out_nbr = self.knn_idx[del_ids]
-            affected.append(out_nbr[out_nbr >= 0])  # their undirected edges vanish
-            self.alive[del_ids] = False
-            self.knn_idx[del_ids] = -1
-            self.knn_wgt[del_ids] = -np.inf
-            hit = np.isin(self.knn_idx, del_ids)
-            hole_rows = np.flatnonzero(hit.any(axis=1))
-            if len(hole_rows):
-                hw = self.knn_wgt[hole_rows]
-                hidx = self.knn_idx[hole_rows]
-                hw[hit[hole_rows]] = -np.inf
-                hidx[hit[hole_rows]] = -1
-                ti, tw = topk_pairs(hw, hidx, self.k)  # compact holes to the tail
-                self.knn_idx[hole_rows] = ti
-                self.knn_wgt[hole_rows] = tw
-                affected.append(hole_rows)
-                changed_lists.append(hole_rows)
-                # push the weakened thresholds now: this batch's own
-                # displacement pruning must see the holes, not the
-                # pre-deletion k-th weights
-                live = hole_rows[self.alive[hole_rows]]
-                sel_impl.finalize(self, live, self.kth_weights(live))
+        with telemetry.span("graph.delete"):
+            del_ids = np.unique(np.asarray(batch.del_ids, np.int64))
+            del_ids = del_ids[(del_ids >= 0) & (del_ids < self.num_nodes)]
+            del_ids = del_ids[self.alive[del_ids]]
+            if len(del_ids):
+                sel_impl.on_delete(self, del_ids)
+                out_nbr = self.knn_idx[del_ids]
+                affected.append(out_nbr[out_nbr >= 0])  # their undirected edges vanish
+                self.alive[del_ids] = False
+                self.knn_idx[del_ids] = -1
+                self.knn_wgt[del_ids] = -np.inf
+                hit = np.isin(self.knn_idx, del_ids)
+                hole_rows = np.flatnonzero(hit.any(axis=1))
+                if len(hole_rows):
+                    hw = self.knn_wgt[hole_rows]
+                    hidx = self.knn_idx[hole_rows]
+                    hw[hit[hole_rows]] = -np.inf
+                    hidx[hit[hole_rows]] = -1
+                    ti, tw = topk_pairs(hw, hidx, self.k)  # compact holes to the tail
+                    self.knn_idx[hole_rows] = ti
+                    self.knn_wgt[hole_rows] = tw
+                    affected.append(hole_rows)
+                    changed_lists.append(hole_rows)
+                    # push the weakened thresholds now: this batch's own
+                    # displacement pruning must see the holes, not the
+                    # pre-deletion k-th weights
+                    live = hole_rows[self.alive[hole_rows]]
+                    sel_impl.finalize(self, live, self.kth_weights(live))
 
         # --- insertions: append rows, select candidates, merge lists ---
         m = len(batch.ins_emb)
         base_id = self.num_nodes
         new_ids = np.arange(base_id, base_id + m, dtype=np.int64)
         if m:
-            ins_emb = np.asarray(batch.ins_emb, np.float32)
-            embn_new = normalize_rows(ins_emb)
-            ins_labels = np.asarray(batch.ins_labels, np.int8)
-            n = base_id + m
-            self._ensure_capacity(n)
-            self._emb_b[base_id:n] = ins_emb
-            self._embn_b[base_id:n] = embn_new
-            self._labels_b[base_id:n] = ins_labels
-            self._alive_b[base_id:n] = True
-            self._f_b[base_id:n] = np.where(
-                ins_labels == 1, 1.0, np.where(ins_labels == 0, 0.0, 0.5)
-            ).astype(np.float32)
-            self._ki_b[base_id:n] = -1
-            self._kw_b[base_id:n] = -np.inf
-            self._reslice(n)
+            with telemetry.span("graph.append"):
+                ins_emb = np.asarray(batch.ins_emb, np.float32)
+                embn_new = normalize_rows(ins_emb)
+                ins_labels = np.asarray(batch.ins_labels, np.int8)
+                n = base_id + m
+                self._ensure_capacity(n)
+                self._emb_b[base_id:n] = ins_emb
+                self._embn_b[base_id:n] = embn_new
+                self._labels_b[base_id:n] = ins_labels
+                self._alive_b[base_id:n] = True
+                self._f_b[base_id:n] = np.where(
+                    ins_labels == 1, 1.0, np.where(ins_labels == 0, 0.0, 0.5)
+                ).astype(np.float32)
+                self._ki_b[base_id:n] = -1
+                self._kw_b[base_id:n] = -np.inf
+                self._reslice(n)
 
-            sel = sel_impl.select(self, new_ids, embn_new)
+            with telemetry.span("ingest.select"):
+                sel = sel_impl.select(self, new_ids, embn_new)
 
             # canonical re-selection for the new rows' lists
-            cand = np.asarray(sel.cand_idx, np.int64)
-            cw = np.full(cand.shape, -np.inf, np.float32)
-            qr, qc = np.nonzero(cand >= 0)
-            if len(qr):
-                cw[qr, qc] = pair_weights(
-                    embn_new[qr], self.embn[cand[qr, qc]])
-            ti, tw = topk_pairs(cw, cand, self.k)
-            self.knn_idx[new_ids] = ti
-            self.knn_wgt[new_ids] = tw
-            affected.append(new_ids)
-            affected.append(ti[ti >= 0])  # rows gaining an in-edge from the batch
-            changed_lists.append(new_ids)
+            with telemetry.span("graph.rerank"):
+                cand = np.asarray(sel.cand_idx, np.int64)
+                cw = np.full(cand.shape, -np.inf, np.float32)
+                qr, qc = np.nonzero(cand >= 0)
+                if len(qr):
+                    cw[qr, qc] = pair_weights(
+                        embn_new[qr], self.embn[cand[qr, qc]])
+                ti, tw = topk_pairs(cw, cand, self.k)
+                self.knn_idx[new_ids] = ti
+                self.knn_wgt[new_ids] = tw
+                affected.append(new_ids)
+                affected.append(ti[ti >= 0])  # rows gaining an in-edge from the batch
+                changed_lists.append(new_ids)
 
             # displaced merges: flagged rows race the batch against their list
-            flagged = np.asarray(sel.flagged, np.int64)
-            for lo in range(0, len(flagged), _MERGE_CHUNK):
-                rows = flagged[lo:lo + _MERGE_CHUNK]
-                bw = pair_weights(self.embn[rows][:, None, :], embn_new[None, :, :])
-                merged_w = np.concatenate([self.knn_wgt[rows], bw], axis=1)
-                merged_i = np.concatenate(
-                    [self.knn_idx[rows],
-                     np.broadcast_to(new_ids, (len(rows), m))], axis=1)
-                mi, mw = topk_pairs(merged_w, merged_i, self.k)
-                changed = (mi != self.knn_idx[rows]).any(axis=1)
-                if not changed.any():
-                    continue
-                crows = rows[changed]
-                old_i = self.knn_idx[crows]
-                mi, mw = mi[changed], mw[changed]
-                # displaced-out ex-neighbors lose an undirected edge
-                still = (old_i[:, :, None] == mi[:, None, :]).any(axis=2)
-                dropped = old_i[(old_i >= 0) & ~still]
-                self.knn_idx[crows] = mi
-                self.knn_wgt[crows] = mw
-                affected.append(crows)
-                affected.append(dropped)
-                changed_lists.append(crows)
+            with telemetry.span("graph.merge"):
+                flagged = np.asarray(sel.flagged, np.int64)
+                telemetry.count("graph.flagged_rows", len(flagged))
+                for lo in range(0, len(flagged), _MERGE_CHUNK):
+                    rows = flagged[lo:lo + _MERGE_CHUNK]
+                    bw = pair_weights(self.embn[rows][:, None, :], embn_new[None, :, :])
+                    merged_w = np.concatenate([self.knn_wgt[rows], bw], axis=1)
+                    merged_i = np.concatenate(
+                        [self.knn_idx[rows],
+                         np.broadcast_to(new_ids, (len(rows), m))], axis=1)
+                    mi, mw = topk_pairs(merged_w, merged_i, self.k)
+                    changed = (mi != self.knn_idx[rows]).any(axis=1)
+                    if not changed.any():
+                        continue
+                    crows = rows[changed]
+                    old_i = self.knn_idx[crows]
+                    mi, mw = mi[changed], mw[changed]
+                    # displaced-out ex-neighbors lose an undirected edge
+                    still = (old_i[:, :, None] == mi[:, None, :]).any(axis=2)
+                    dropped = old_i[(old_i >= 0) & ~still]
+                    self.knn_idx[crows] = mi
+                    self.knn_wgt[crows] = mw
+                    affected.append(crows)
+                    affected.append(dropped)
+                    changed_lists.append(crows)
 
         # --- refresh the undirected edge arrays from the lists ---
-        touched = np.unique(np.concatenate(changed_lists + [del_ids]))
-        self._rebuild_edges(touched)
+        with telemetry.span("graph.edges"):
+            touched = np.unique(np.concatenate(changed_lists + [del_ids]))
+            self._rebuild_edges(touched)
 
         # --- G': edges among new vertices with w > τ (local ids) ---
-        if m:
-            tau = self.mean_edge_weight() if tau is None else tau
-            ni, nw = self.knn_idx[new_ids], self.knn_wgt[new_ids]
-            both_new = (ni >= base_id) & (nw > tau)
-            gp_s = np.repeat(np.arange(m, dtype=np.int64), self.k)[both_new.ravel()]
-            gp_d = (ni[both_new] - base_id).astype(np.int64)
-            gp_w = nw[both_new].astype(np.float32)
-        else:
-            gp_s = gp_d = np.zeros((0,), np.int64)
-            gp_w = np.zeros((0,), np.float32)
+        with telemetry.span("graph.gprime"):
+            if m:
+                tau = self.mean_edge_weight() if tau is None else tau
+                ni, nw = self.knn_idx[new_ids], self.knn_wgt[new_ids]
+                both_new = (ni >= base_id) & (nw > tau)
+                gp_s = np.repeat(np.arange(m, dtype=np.int64), self.k)[both_new.ravel()]
+                gp_d = (ni[both_new] - base_id).astype(np.int64)
+                gp_w = nw[both_new].astype(np.float32)
+            else:
+                gp_s = gp_d = np.zeros((0,), np.int64)
+                gp_w = np.zeros((0,), np.float32)
 
         # --- relabels: ground-truth changes on existing vertices ---
-        if batch.rel_ids is not None and len(batch.rel_ids):
-            rel = np.asarray(batch.rel_ids, np.int64)
-            rlab = np.asarray(batch.rel_labels, np.int8)
-            ok = (rel >= 0) & (rel < self.num_nodes) & self.alive[rel]
-            rel, rlab = rel[ok], rlab[ok]
-            if len(rel):
-                self.labels[rel] = rlab
-                self.f[rel] = np.where(
-                    rlab == 1, 1.0, np.where(rlab == 0, 0.0, 0.5)
-                ).astype(np.float32)
-                out = self.knn_idx[rel]
-                in_rows = np.flatnonzero(np.isin(self.knn_idx, rel).any(axis=1))
-                affected.append(rel)
-                affected.append(out[out >= 0])
-                affected.append(in_rows)
+        with telemetry.span("graph.relabel"):
+            if batch.rel_ids is not None and len(batch.rel_ids):
+                rel = np.asarray(batch.rel_ids, np.int64)
+                rlab = np.asarray(batch.rel_labels, np.int8)
+                ok = (rel >= 0) & (rel < self.num_nodes) & self.alive[rel]
+                rel, rlab = rel[ok], rlab[ok]
+                if len(rel):
+                    self.labels[rel] = rlab
+                    self.f[rel] = np.where(
+                        rlab == 1, 1.0, np.where(rlab == 0, 0.0, 0.5)
+                    ).astype(np.float32)
+                    out = self.knn_idx[rel]
+                    in_rows = np.flatnonzero(np.isin(self.knn_idx, rel).any(axis=1))
+                    affected.append(rel)
+                    affected.append(out[out >= 0])
+                    affected.append(in_rows)
 
-        aff = (
-            np.unique(np.concatenate(affected)) if affected else np.zeros(0, np.int64)
-        )
-        aff = aff[self.alive[aff]]
-        changed = (
-            np.unique(np.concatenate(changed_lists))
-            if changed_lists else np.zeros(0, np.int64)
-        )
-        changed = changed[self.alive[changed]]
-        if len(changed):
-            sel_impl.finalize(self, changed, self.kth_weights(changed))
+        with telemetry.span("graph.finalize"):
+            aff = (
+                np.unique(np.concatenate(affected)) if affected else np.zeros(0, np.int64)
+            )
+            aff = aff[self.alive[aff]]
+            changed = (
+                np.unique(np.concatenate(changed_lists))
+                if changed_lists else np.zeros(0, np.int64)
+            )
+            changed = changed[self.alive[changed]]
+            if len(changed):
+                sel_impl.finalize(self, changed, self.kth_weights(changed))
         return BatchEffect(
             new_ids=new_ids, affected=aff, gprime_src=gp_s, gprime_dst=gp_d,
             gprime_wgt=gp_w,

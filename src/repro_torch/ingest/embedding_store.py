@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.device import resolve_device
 
 CAP_FLOOR = 1024  # a multiple of the reference kernel's 256-row tile
@@ -64,8 +65,12 @@ def dim_pad(d: int) -> int:
 
 
 def note_shape(kind: str, *dims: int) -> None:
-    """Record one update or kernel shape (see ``store_cache_size``)."""
-    _SHAPES.add((kind, *map(int, dims)))
+    """Record one update or kernel shape (see ``store_cache_size``); a
+    shape seen first ticks the ``ingest.new_shapes`` counter."""
+    key = (kind, *map(int, dims))
+    if key not in _SHAPES:
+        _SHAPES.add(key)
+        telemetry.count("ingest.new_shapes")
 
 
 def store_cache_size() -> int:

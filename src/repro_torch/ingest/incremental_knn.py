@@ -34,6 +34,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.graph.dynamic import Selection
 from repro_torch.graph.knn import SELECT_MARGIN, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates
@@ -122,7 +123,6 @@ class DeviceIngestor:
             self.store = ShardedEmbeddingStore(emb_dim, self.mesh, capacity_floor=capacity_floor)
         else:
             self.store = EmbeddingStore(emb_dim, capacity_floor=capacity_floor, device=device)
-        self.selects = 0
 
     def attach(self, g) -> None:
         """Adopt an existing graph's rows (host → device backfill)."""
@@ -135,41 +135,44 @@ class DeviceIngestor:
 
     def select(self, g, new_ids: np.ndarray, embn_new: np.ndarray) -> Selection:
         base_id = int(new_ids[0])
-        if self.store.count != base_id:
-            if self.store.count == 0 and base_id > 0:
-                # lazy attach: adopt the pre-batch rows (they live at
-                # g[:base_id]; apply_batch appended the batch already)
-                self.store.backfill(
-                    g.embn[:base_id], g.alive[:base_id],
-                    g.kth_weights(np.arange(base_id, dtype=np.int64)))
-            else:
-                raise RuntimeError(
-                    f"DeviceIngestor out of sync with graph: store has "
-                    f"{self.store.count} rows, batch starts at {base_id}. "
-                    "Use one ingestor per graph and route every batch "
-                    "through it.")
-        batch, bvalid, bid = self.store.append(np.ascontiguousarray(embn_new, np.float32))
+        with telemetry.span("ingest.store_append"):
+            if self.store.count != base_id:
+                if self.store.count == 0 and base_id > 0:
+                    # lazy attach: adopt the pre-batch rows (they live at
+                    # g[:base_id]; apply_batch appended the batch already)
+                    self.store.backfill(
+                        g.embn[:base_id], g.alive[:base_id],
+                        g.kth_weights(np.arange(base_id, dtype=np.int64)))
+                else:
+                    raise RuntimeError(
+                        f"DeviceIngestor out of sync with graph: store has "
+                        f"{self.store.count} rows, batch starts at {base_id}. "
+                        "Use one ingestor per graph and route every batch "
+                        "through it.")
+            batch, bvalid, bid = self.store.append(np.ascontiguousarray(embn_new, np.float32))
         assert bid == base_id
         s = self.store
-        if self.mesh is not None:
-            from repro_torch.core.distributed import build_store_shard_plan
+        with telemetry.span("ingest.search"):
+            if self.mesh is not None:
+                from repro_torch.core.distributed import build_store_shard_plan
 
-            note_shape("argkmin_sharded", s.capacity, batch[0].shape[0])
-            plan = build_store_shard_plan(self.mesh, (s.capacity, s.dp))
-            val, idx, disp = plan.sweep(s.emb_s, s.valid_s, s.kth_s, batch, bvalid, base_id,
-                                        selection_slack(g.emb_dim),
-                                        topk=min(g.k + SELECT_MARGIN, s.capacity))
-        else:
-            note_shape("argkmin", s.capacity, batch.shape[0])
-            val, idx, disp = argkmin_candidates(
-                s.emb, s.valid, s.kth, batch, bvalid, base_id,
-                selection_slack(g.emb_dim), k=g.k)
+                note_shape("argkmin_sharded", s.capacity, batch[0].shape[0])
+                plan = build_store_shard_plan(self.mesh, (s.capacity, s.dp))
+                val, idx, disp = plan.sweep(s.emb_s, s.valid_s, s.kth_s, batch, bvalid,
+                                            base_id, selection_slack(g.emb_dim),
+                                            topk=min(g.k + SELECT_MARGIN, s.capacity))
+            else:
+                note_shape("argkmin", s.capacity, batch.shape[0])
+                val, idx, disp = argkmin_candidates(
+                    s.emb, s.valid, s.kth, batch, bvalid, base_id,
+                    selection_slack(g.emb_dim), k=g.k)
         m = len(new_ids)
-        # the padded blocks come back whole and are sliced on the host
-        val = val.cpu().numpy()[:m]
-        cand = np.where(np.isfinite(val), idx.cpu().numpy()[:m].astype(np.int64), -1)
-        flagged = np.flatnonzero(disp.cpu().numpy()).astype(np.int64)
-        self.selects += 1
+        # the padded blocks come back whole and are sliced on the host; the
+        # first read waits for the search
+        with telemetry.span("ingest.readback"):
+            val = val.cpu().numpy()[:m]
+            cand = np.where(np.isfinite(val), idx.cpu().numpy()[:m].astype(np.int64), -1)
+            flagged = np.flatnonzero(disp.cpu().numpy()).astype(np.int64)
         return Selection(cand_idx=cand, flagged=flagged)
 
     def finalize(self, g, rows: np.ndarray, kth: np.ndarray) -> None:

@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 import time
 
+from repro_torch import telemetry
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprotorch.so"
@@ -140,7 +142,9 @@ def build() -> tuple[pathlib.Path, bool, float, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        seconds, log = compile_library(sources(), tmp)
+        with telemetry.span("kernels.build"):
+            seconds, log = compile_library(sources(), tmp)
+        telemetry.count("kernels.builds")
     except BaseException:
         os.unlink(tmp)
         raise

@@ -60,7 +60,8 @@ import torch
 
 from repro_torch.core.components import component_order, permute_ell_rows
 from repro_torch.core.propagate import (PropagateResult, PropagationProblem, _delta,
-                                        _max_abs, bsr_update_island, propagate)
+                                        _max_abs, bsr_update_island, frontier_live,
+                                        propagate)
 from repro_torch.core.snapshot import bucket_k
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bsr_spmv import bsr_spmv, ell_bsr_layout, fill_bsr_blocks
@@ -232,7 +233,7 @@ def propagate_ell(
     frontier = (frontier0 & p.valid).contiguous()
     it = 0
     resid = torch.zeros((), dtype=torch.float32, device=p.device)
-    while it < max_iters and bool(frontier.any()):
+    while it < max_iters and frontier_live(frontier):
         f_new, changed = ell_propagate_step(p.nbr, p.wgt, p.wl0, p.wl1,
                                             frontier, f, delta=delta)
         changed = changed & p.valid
@@ -292,7 +293,7 @@ def _bsr_fixpoint(problem: PropagationProblem, slot: torch.Tensor, f0: torch.Ten
     frontier = frontier0 & p.valid
     it = 0
     resid = torch.zeros((), dtype=torch.float32, device=p.device)
-    while it < max_iters and bool(frontier.any()):
+    while it < max_iters and frontier_live(frontier):
         y = bsr_spmv(blocks, bcols, f)[:n]
         f_all = bsr_update_island(y, p.wl1, wall, f)
         f_new = torch.where(frontier & p.valid, f_all, f)

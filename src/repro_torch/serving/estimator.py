@@ -28,6 +28,7 @@ import inspect
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core.stream import StreamEngine
 from repro_torch.graph.dynamic import UNLABELED, DynamicGraph
 from repro_torch.serving.lp_service import LPService
@@ -97,13 +98,14 @@ class DynLabelPropagation:
 
     # ------------------------------------------------------------------ #
     def _init_stack(self, n_features: int) -> None:
-        self.graph_ = DynamicGraph(emb_dim=n_features, k=self.k)
-        self.engine_ = StreamEngine(
-            self.graph_, delta=self.delta, tau=self.tau,
-            max_iters=self.max_iters, ingest=self.ingest,
-            **(self.engine_opts or {}))
-        self.service_ = LPService(
-            self.engine_, cutoff=self.cutoff, **(self.service_opts or {}))
+        with telemetry.span("fit.init_stack"):
+            self.graph_ = DynamicGraph(emb_dim=n_features, k=self.k)
+            self.engine_ = StreamEngine(
+                self.graph_, delta=self.delta, tau=self.tau,
+                max_iters=self.max_iters, ingest=self.ingest,
+                **(self.engine_opts or {}))
+            self.service_ = LPService(
+                self.engine_, cutoff=self.cutoff, **(self.service_opts or {}))
         self.classes_ = np.array([0, 1], np.int8)
         self.n_features_in_ = n_features
 
@@ -115,9 +117,10 @@ class DynLabelPropagation:
         return X
 
     def _refresh_transduction(self) -> None:
-        n = self.graph_.num_nodes
-        res = self.service_.query(np.arange(n, dtype=np.int64))
-        self.transduction_ = res.pred
+        with telemetry.span("fit.readback"):
+            n = self.graph_.num_nodes
+            res = self.service_.query(np.arange(n, dtype=np.int64))
+            self.transduction_ = res.pred
 
     def fit(self, X, y=None) -> "DynLabelPropagation":
         """Build a fresh graph from ``X`` and propagate.  ``y`` holds 0/1

@@ -55,6 +55,7 @@ import time
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.snapshot import LabelView
 from repro_torch.core.stream import StreamEngine, StreamStats
@@ -647,13 +648,14 @@ class LPService:
         window, self._window = self._window, []
         ops, self._window_ops = self._window_ops, 0
         self._window_t0 = None
-        batch = BatchUpdate(
-            ins_emb=np.concatenate([q.ins_emb for q in window]),
-            ins_labels=np.concatenate([q.ins_labels for q in window]),
-            del_ids=np.concatenate([q.del_ids for q in window]),
-            rel_ids=np.concatenate([q.rel_ids for q in window]),
-            rel_labels=np.concatenate([q.rel_labels for q in window]),
-        )
+        with telemetry.span("service.admit"):
+            batch = BatchUpdate(
+                ins_emb=np.concatenate([q.ins_emb for q in window]),
+                ins_labels=np.concatenate([q.ins_labels for q in window]),
+                del_ids=np.concatenate([q.del_ids for q in window]),
+                rel_ids=np.concatenate([q.rel_ids for q in window]),
+                rel_labels=np.concatenate([q.rel_labels for q in window]),
+            )
         # submit internally drains the previous batch — those are the
         # current in-flight tickets, resolved below if that drain ran.
         prev = self.engine.submit(batch)

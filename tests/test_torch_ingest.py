@@ -16,6 +16,7 @@ import torch
 from repro.graph import dynamic as jdyn
 from repro.ingest import DeviceIngestor as JaxDeviceIngestor
 from repro.ingest.embedding_store import EmbeddingStore as JaxEmbeddingStore
+from repro_torch import telemetry
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph
 from repro_torch.graph.knn import build_knn_graph
 from repro_torch.ingest import DeviceIngestor, ingest_cache_size, ingest_ladder_bound
@@ -121,15 +122,20 @@ def test_device_insert_stream_bit_identical_to_rebuild(seed, n_batches, k, emb_d
     batches = _insert_stream(rng, emb_dim, n_batches, 24)
     g = DynamicGraph(emb_dim, k=k)
     ing = DeviceIngestor(emb_dim, device="cpu")
-    for b in batches:
-        _apply(g, b, NONE, ing)
+    telemetry.enable()
+    try:
+        for b in batches:
+            _apply(g, b, NONE, ing)
+    finally:
+        telemetry.disable()
+    selects = sum(s.name == "ingest.select" for s in telemetry.take().spans)
     ref = build_knn_graph(np.concatenate(batches), k=k)
     csr, ids = g.snapshot_csr()
     np.testing.assert_array_equal(ids, np.arange(g.num_nodes))
     for name in ("rowptr", "col", "wgt"):
         assert np.asarray(getattr(csr, name)).tobytes() == \
             np.asarray(getattr(ref, name)).tobytes(), name
-    assert ing.selects == sum(len(b) > 0 for b in batches)
+    assert selects == sum(len(b) > 0 for b in batches)
 
 
 @pytest.mark.parametrize("seed,n_batches,k,frac_del", [(3, 6, 3, 0.2), (4, 5, 5, 0.3),
@@ -201,6 +207,30 @@ def test_attach_and_lazy_attach_adopt_existing_rows():
         _apply(gl, b, dels, lazy)
         _same_graph(gh, ga, "attach")
         _same_graph(gh, gl, "lazy")
+
+
+def test_ingest_cache_within_ladder_bound():
+    """tests/test_ingest.py's stream on the port: the shapes the store and
+    the kernel run at stay under the a-priori ladder bound, and each one
+    seen first ticks the recorder's ``ingest.new_shapes`` counter."""
+    rng = np.random.default_rng(2)
+    emb_dim, k = 16, 4
+    g = DynamicGraph(emb_dim, k=k)
+    ing = DeviceIngestor(emb_dim, device="cpu")
+    c0 = ingest_cache_size()
+    total = 0
+    telemetry.enable()
+    try:
+        for t in range(30):
+            m = int(rng.integers(1, 33))
+            dels = (rng.choice(total, size=4, replace=False).astype(np.int64)
+                    if t % 6 == 5 and total > 8 else NONE)
+            _apply(g, rng.normal(size=(m, emb_dim)).astype(np.float32), dels, ing)
+            total += m
+    finally:
+        telemetry.disable()
+    new = telemetry.take().counters.get("ingest.new_shapes", 0)
+    assert ingest_cache_size() - c0 == new <= ingest_ladder_bound(total, 32)
 
 
 def test_ingestor_out_of_sync_raises():
