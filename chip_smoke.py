@@ -42,7 +42,14 @@ Phases (each prints its lines and its seconds; any failed check raises):
    ``base_id``, one below it, one above it; duplicates tied across two
    shards), each launch bitwise to its plain version, and ``shard_sweep``'s
    merged lists and mask (one launch a shard) bitwise to one unsharded
-   launch.
+   launch.  The rerank kernel ``knn_rerank`` (the new rows' canonical
+   lists from argkmin's candidates, read in place in the store) against
+   its plain version and this machine's numpy ``topk_pairs(pair_weights(
+   ...))`` at D = 3, 8, 12, 16, 128 and TK = 1, 8, 9, 11, 13, 16, 17, 32
+   (killed store rows, empty slots, ties), k > TK, every slot empty, a
+   fit's batch at base 0; then timed at (M, TK, D) = (400,000, 13, 128)
+   beside its byte bound, its plain version, the launch with its D2H copy
+   and the host numpy code it replaced.
 3. Path 1: ``DynLP`` (default backend, which must resolve to ``ell_cuda``)
    over a ``gaussian_mixture_stream`` of 5,000-vertex batches under the
    paper's 90/1/9 protocol (``--vertices``, 20,000 by default).  The sweep
@@ -51,9 +58,9 @@ Phases (each prints its lines and its seconds; any failed check raises):
    the ground truth must reach 0.99.
 4. Path 2: ``StreamEngine(g, delta=1e-4, ingest="device")`` (default
    backend, ``ell_cuda``) over the same stream and the same number of
-   vertices, batch t+1 submitted before batch t is drained.  argkmin
-   launches must equal the batches with insertions and sweep launches the
-   sweeps; every batch must converge; accuracy must reach 0.99; after the
+   vertices, batch t+1 submitted before batch t is drained.  argkmin and
+   rerank launches must equal the batches with insertions and sweep
+   launches the sweeps; every batch must converge; accuracy must reach 0.99; after the
    last batch the engine's graph arrays and committed labels must equal
    path 1's byte for byte.
 5. Path 3: ``StreamEngine(g, delta=1e-4, ingest="device", backend="bsr")``
@@ -409,10 +416,12 @@ from repro_torch.data.pipeline import PseudoLabelPipeline  # noqa: E402
 from repro_torch.data.synth import (StreamSpec, accuracy, gaussian_mixture_stream,  # noqa: E402
                                     make_documents)
 from repro_torch.graph.dynamic import UNLABELED, BatchUpdate, DynamicGraph  # noqa: E402
-from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack  # noqa: E402
+from repro_torch.graph.knn import (SELECT_MARGIN, normalize_rows, pair_weights,  # noqa: E402
+                                   selection_slack, topk_pairs)
 from repro_torch.graph import partition  # noqa: E402
 from repro_torch.graph.structures import coo_to_csr, csr_to_ell_fast  # noqa: E402
 from repro_torch.ingest import incremental_knn  # noqa: E402
+from repro_torch.ingest.embedding_store import EmbeddingStore, dim_pad  # noqa: E402
 from repro_torch.kernels._build import load_library, ptxas_report  # noqa: E402
 from repro_torch.kernels import ops as ops_module  # noqa: E402
 from repro_torch.kernels import argkmin as argkmin_module  # noqa: E402
@@ -420,6 +429,7 @@ from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_geometry,  
                                          argkmin_launch, argkmin_ref, resident_blocks,
                                          shard_sweep)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref, ell_bsr_layout  # noqa: E402
+from repro_torch.kernels.knn_rerank import rerank_candidates, rerank_ref  # noqa: E402
 from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,  # noqa: E402
                                          connected_components_cuda,
                                          connected_components_ref)
@@ -517,7 +527,8 @@ def require(cond, msg):
 def counted():
     """Every kernel wrapper of the port, by the key its launches go under."""
     return dict(ell=ell_propagate_step, argkmin=argkmin_candidates, bsr=bsr_spmv,
-                cc_step=cc_hook_step, cc_fixpoint=connected_components_cuda)
+                cc_step=cc_hook_step, cc_fixpoint=connected_components_cuda,
+                rerank=rerank_candidates)
 
 
 def reset_launches():
@@ -1187,9 +1198,10 @@ def phase_stream(vertices, batch_size, prefix, backend=None):
     launches = read_launches()
     sweeps = sum(st.iterations for st in stats)
     print(f"   batches={len(stats)} with insertions={inserts}; sweeps={sweeps}; launches: "
-          f"argkmin {launches['argkmin']}, sweep kernel {launches['ell']}, "
-          f"SpMV {launches['bsr']}")
+          f"argkmin {launches['argkmin']}, rerank {launches['rerank']}, sweep kernel "
+          f"{launches['ell']}, SpMV {launches['bsr']}")
     require(launches["argkmin"] == inserts > 0, "argkmin launches != batches with insertions")
+    require(launches["rerank"] == inserts, "rerank launches != batches with insertions")
     solver = "bsr" if backend == "bsr" else "ell"
     require(launches[solver] == sweeps > 0, f"{solver} kernel launches != sweeps")
     require(launches["ell" if solver == "bsr" else "bsr"] == 0,
@@ -1735,6 +1747,112 @@ def phase_argkmin_timing(inp):
           f"floor {2 * wb[2] / F32_FLOPS * 1e3:.4f} ms")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
                 max_abs_err=err)
+
+
+def rerank_inputs(rng, c, d, m, tk, base=None, killed=0.1, empty=0.2, dup=False):
+    """rerank inputs on the card: an ``EmbeddingStore`` of width ``d``
+    holding ``base`` old rows (a share ``killed`` of them deleted: the
+    re-selection reads a candidate's row whatever its state), then the
+    batch of ``m`` rows at ``base`` (``base = 0``: a fit, the candidates
+    within the batch); (m, tk) candidate ids, a share ``empty`` of them -1
+    and every fifth row under-full; ``dup`` makes a third of the rows
+    copies of one (ties the ids decide)."""
+    base = c - m if base is None else base
+    store = EmbeddingStore(d, capacity_floor=c, device="cuda")
+    rows = normalize_rows(rng.normal(size=(base + m, d)).astype(np.float32))
+    if dup:
+        rows[::3] = rows[1]
+    if base:
+        store.append(rows[:base])
+        store.kill(rng.choice(base, size=int(killed * base), replace=False))
+    _, _, b = store.append(rows[base:])
+    hi = base if base else m
+    cand = rng.integers(0, hi, size=(m, tk)).astype(np.int32)
+    cand[rng.random((m, tk)) < empty] = -1
+    cand[::5, tk // 3:] = -1
+    return dict(store=store, rows=rows, base=b, cand=torch.from_numpy(cand).cuda(), d=d)
+
+
+def check_rerank(name, inp, k=5, host=True):
+    """The kernel against its plain version, and (``host``) against the
+    host's numpy ``topk_pairs(pair_weights(...))`` on this machine's numpy:
+    ids and weights bitwise."""
+    store, base, cand, d = inp["store"].emb, inp["base"], inp["cand"], inp["d"]
+    got = rerank_candidates(store, base, cand, d=d, k=k)
+    want = rerank_ref(store, base, cand, d=d, k=k)
+    torch.cuda.synchronize()
+    same = [torch.equal(got[0], want[0]),
+            torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))]
+    if host:
+        ch = cand.cpu().numpy().astype(np.int64)
+        cw = np.full(ch.shape, -np.inf, np.float32)
+        qr, qc = np.nonzero(ch >= 0)
+        rows = inp["rows"]
+        cw[qr, qc] = pair_weights(rows[base:][qr], rows[ch[qr, qc]])
+        hi, hw = topk_pairs(cw, ch, k)
+        same += [np.array_equal(got[0].cpu().numpy(), hi),
+                 np.array_equal(got[1].cpu().numpy().view(np.int32), hw.view(np.int32))]
+    m, tk = cand.shape
+    print(f"   rerank {name:<30} C={store.shape[0]:<7} D={d:<3} M={m:<6} TK={tk:<2} k={k:<2} "
+          f"bitwise idx/w (plain{', host numpy' if host else ''})={same}")
+    require(all(same), f"rerank {name}: kernel != plain version / host")
+
+
+def rerank_bound(m, tk, d, k):
+    """The least time (ms) an H100 takes for one rerank call: the candidate
+    rows, the query rows, the ids and the (M, k) output (int64 + float32),
+    each once, at 3.35 TB/s."""
+    nbytes = m * tk * d * 4 + m * d * 4 + m * tk * 4 + m * k * 12
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_rerank():
+    """The rerank kernel against its plain version (and this machine's
+    numpy) on edge cases, then timed at a fit's shape: (M, TK, D) =
+    (400,000, 13, 128), every candidate present, beside its byte bound, the
+    plain version and the host numpy code it replaced."""
+    rng = np.random.default_rng(29)
+    for d in (3, 8, 12, 16, 128):
+        for tk in (1, 8, 9, 11, 13, 16, 17, 32):
+            check_rerank(f"D={d} TK={tk}", rerank_inputs(rng, 3000, d, 200, tk, dup=d == 16))
+    check_rerank("k > TK", rerank_inputs(rng, 3000, 12, 77, 11), k=20)
+    check_rerank("every slot empty", rerank_inputs(rng, 2048, 16, 40, 13, empty=1.0))
+    check_rerank("a fit's batch at base 0", rerank_inputs(rng, 70_000, 128, 65_536, 13, base=0,
+                                                          empty=0.0))
+    m, tk, d, k = 400_000, 13, 128, 5
+    inp = rerank_inputs(rng, m, d, m, tk, base=0, empty=0.0)
+    check_rerank("fit shape", inp, host=False)
+    store, cand = inp["store"].emb, inp["cand"]
+    k_ms = statistics.median(gpu_times(
+        [lambda: rerank_candidates(store, 0, cand, d=d, k=k)] * 20, per_sleep=20))
+    p_ms = statistics.median(gpu_times(
+        [lambda: rerank_ref(store, 0, cand, d=d, k=k)] * 3, per_sleep=1))
+
+    def round_trip():  # what the graph.rerank span runs: the launch and the D2H
+        idx, w = rerank_candidates(store, 0, cand, d=d, k=k)
+        return idx.cpu().numpy(), w.cpu().numpy()
+
+    span_ms = _wall_ms(round_trip, reps=5)
+    rows = inp["rows"]
+    ch = cand.cpu().numpy().astype(np.int64)
+    t0 = time.perf_counter()  # the host code the kernel replaced, once
+    cw = np.full(ch.shape, -np.inf, np.float32)
+    qr, qc = np.nonzero(ch >= 0)
+    cw[qr, qc] = pair_weights(rows[qr], rows[ch[qr, qc]])
+    hi, hw = topk_pairs(cw, ch, k)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    got = round_trip()
+    require(np.array_equal(got[0], hi) and np.array_equal(got[1].view(np.int32),
+                                                          hw.view(np.int32)),
+            "rerank at the fit's shape != the host's numpy lists")
+    b_ms, nbytes = rerank_bound(m, tk, d, k)
+    print(f"   rerank (M, TK, D, k)=({m}, {tk}, {d}, {k}): kernel {k_ms:.4f} ms  plain "
+          f"{p_ms:.3f} ms  bound {b_ms:.4f} ms ({nbytes / 1e9:.3f} GB, bytes)  kernel/bound "
+          f"{k_ms / b_ms:.2f}x ({100 * b_ms / k_ms:.1f}% of the bound); launch + D2H "
+          f"{span_ms:.2f} ms; the host's numpy (pair_weights + topk_pairs) {host_ms:.1f} ms, "
+          f"bitwise equal")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes", span_ms=span_ms,
+                host_ms=host_ms, max_abs_err=0.0)
 
 
 def library_times(fn, reps):
@@ -5381,6 +5499,8 @@ def main(argv=None) -> int:
         report_ptxas(lib.log)
     with Phase("kernels vs plain versions on the card"):
         sweep_err, argkmin_err, bsr_err, cc_err = phase_kernels()
+    with Phase("the rerank kernel vs its plain version, timed at a fit's shape"):
+        tr = phase_rerank()
     with Phase("path 1: DynLP.step over the stream"):
         prefix, dyn_launches = phase_main(args.vertices, args.batch)
     with Phase("path 2: StreamEngine(ingest='device') over the stream"):
@@ -5461,6 +5581,14 @@ def main(argv=None) -> int:
         "ms": ta["ms"], "plain_ms": ta["plain_ms"], "bound_ms": ta["bound_ms"],
         "bound_by": ta["bound_by"], "library_ms": ta["library_ms"],
         "path7_shard_ms": out7["shard_ms"], "path7_whole_store_ms": out7["whole_ms"],
+    }, {
+        "name": "knn_rerank", "route": "cuda",
+        "source": "src/repro_torch/csrc/knn_rerank.cu",
+        "replaces": None,  # the reference re-selects on the host, in numpy
+        "launches": out3["launches"]["rerank"], **per_path("rerank"),
+        "max_abs_err": tr["max_abs_err"], "ms": tr["ms"], "plain_ms": tr["plain_ms"],
+        "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"], "library_ms": None,
+        "span_ms": tr["span_ms"], "host_ms": tr["host_ms"],
     }, {
         "name": "bsr_spmv", "route": "cuda",
         "source": "src/repro_torch/csrc/bsr_spmv.cu",

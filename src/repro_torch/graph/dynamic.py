@@ -86,13 +86,16 @@ class Selection:
     """A selector's nomination for one batch (global ids everywhere).
 
     ``cand_idx`` (M, W) int64: per new row, a candidate superset covering
-    its canonical top-k (−1 padding; never self, never dead).  ``flagged``
-    (A,) int64: alive pre-batch rows whose current k-th weight the batch
-    may beat (superset — pruned against each row's k-th similarity plus
-    ``selection_slack``); only these rows pay a merge.
+    its canonical top-k (−1 padding; never self, never dead).  A selector
+    may leave it on the device as an integer tensor instead; it then
+    re-selects the lists itself (``rerank(g, cand_idx, base_id)``, as
+    ``DeviceIngestor`` does).  ``flagged`` (A,) int64: alive pre-batch rows
+    whose current k-th weight the batch may beat (superset — pruned
+    against each row's k-th similarity plus ``selection_slack``); only
+    these rows pay a merge.
     """
 
-    cand_idx: np.ndarray
+    cand_idx: np.ndarray  # or a device tensor (see above)
     flagged: np.ndarray
 
 
@@ -339,15 +342,19 @@ class DynamicGraph:
             with telemetry.span("ingest.select"):
                 sel = sel_impl.select(self, new_ids, embn_new)
 
-            # canonical re-selection for the new rows' lists
+            # canonical re-selection for the new rows' lists: on the card
+            # where the selector left its candidates there, else here
             with telemetry.span("graph.rerank"):
-                cand = np.asarray(sel.cand_idx, np.int64)
-                cw = np.full(cand.shape, -np.inf, np.float32)
-                qr, qc = np.nonzero(cand >= 0)
-                if len(qr):
-                    cw[qr, qc] = pair_weights(
-                        embn_new[qr], self.embn[cand[qr, qc]])
-                ti, tw = topk_pairs(cw, cand, self.k)
+                if isinstance(sel.cand_idx, np.ndarray):
+                    cand = np.asarray(sel.cand_idx, np.int64)
+                    cw = np.full(cand.shape, -np.inf, np.float32)
+                    qr, qc = np.nonzero(cand >= 0)
+                    if len(qr):
+                        cw[qr, qc] = pair_weights(
+                            embn_new[qr], self.embn[cand[qr, qc]])
+                    ti, tw = topk_pairs(cw, cand, self.k)
+                else:
+                    ti, tw = sel_impl.rerank(self, sel.cand_idx, base_id)
                 self.knn_idx[new_ids] = ti
                 self.knn_wgt[new_ids] = tw
                 affected.append(new_ids)

@@ -10,21 +10,27 @@ on top of the device-resident ``EmbeddingStore`` and the argkmin kernel:
   * ``select`` appends the batch to the store and runs one argkmin over
     it, returning the new rows' candidate supersets and the displaced-row
     ``flagged`` set, pruned against each row's current k-th weight.  Only
-    an (M, TK) value block, an (M, TK) index block and a (C,) mask cross
-    back to the host;
+    the (C,) mask crosses back to the host: the (M, TK) candidate ids stay
+    on the card as a tensor;
+  * ``rerank`` re-selects the new rows' lists canonically from those
+    candidates on the card (``kernels.knn_rerank``, the batch's rows read in
+    place in the store) and brings the (M, k) lists back;
   * ``finalize`` pushes the refreshed k-th weights of every row whose list
     changed back to the store, keeping the next batch's pruning exact.
 
-Canonical re-selection and list merges stay in ``DynamicGraph``; the
-ingestor only nominates supersets, which is why its streams are
-bit-identical to the ``HostKNNSelector`` path (``graph.knn`` docstring).
+The canonical weights are ``graph.knn.pair_weights``'s bits wherever they
+are computed, so the ingestor's streams are bit-identical to the
+``HostKNNSelector`` path (``graph.knn`` docstring); the list merges stay in
+``DynamicGraph``.
 
 With a mesh (``DeviceIngestor(..., mesh=...)``) the ingestor builds the
 row-sharded store and the candidate search moves the batch to the shards:
 ``core.distributed.StoreShardPlan`` (one per capacity rung) runs one
 argkmin launch a shard at its global row offset and merges the lists, so
 the candidates and the displacement mask are the single-device ones and
-sharded streams stay bit-identical to single-device ones.
+sharded streams stay bit-identical to single-device ones.  Its candidates
+come back to the host as numpy, and ``DynamicGraph`` re-selects them there:
+a row's candidates may sit in shards on other cards.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from repro_torch import telemetry
 from repro_torch.graph.dynamic import Selection
 from repro_torch.graph.knn import SELECT_MARGIN, selection_slack
 from repro_torch.kernels.argkmin import argkmin_candidates
+from repro_torch.kernels.knn_rerank import rerank_candidates
 
 from .embedding_store import (
     BATCH_FLOOR,
@@ -167,13 +174,26 @@ class DeviceIngestor:
                     s.emb, s.valid, s.kth, batch, bvalid, base_id,
                     selection_slack(g.emb_dim), k=g.k)
         m = len(new_ids)
-        # the padded blocks come back whole and are sliced on the host; the
-        # first read waits for the search
+        # the first read waits for the search.  On the single-device store
+        # the candidates stay on the card for ``rerank``; the mesh's lists
+        # come back whole and are sliced on the host
         with telemetry.span("ingest.readback"):
-            val = val.cpu().numpy()[:m]
-            cand = np.where(np.isfinite(val), idx.cpu().numpy()[:m].astype(np.int64), -1)
+            if self.mesh is None:
+                cand = torch.where(torch.isfinite(val[:m]), idx[:m], -1)
+            else:
+                val = val.cpu().numpy()[:m]
+                cand = np.where(np.isfinite(val), idx.cpu().numpy()[:m].astype(np.int64), -1)
             flagged = np.flatnonzero(disp.cpu().numpy()).astype(np.int64)
         return Selection(cand_idx=cand, flagged=flagged)
+
+    def rerank(self, g, cand: torch.Tensor, base_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """The new rows' canonical lists from the candidates ``select`` left
+        on the card, read with the batch's rows in place in the store:
+        ``(idx (M, k) int64, wgt (M, k) float32)`` on the host, the bits of
+        ``topk_pairs(pair_weights(...), cand, k)``."""
+        telemetry.count("graph.rerank_store_rows", len(cand))
+        idx, wgt = rerank_candidates(self.store.emb, base_id, cand, d=g.emb_dim, k=g.k)
+        return idx.cpu().numpy(), wgt.cpu().numpy()
 
     def finalize(self, g, rows: np.ndarray, kth: np.ndarray) -> None:
         self.store.set_kth(np.asarray(rows, np.int64), np.asarray(kth, np.float32))

@@ -43,6 +43,7 @@ SIGNATURES = {
     "cc_hook_step": ([_P] * 3 + [_I, _I, _P], _I),
     "cc_fixpoint": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "cc_fixpoint_plan": ([_I, _I, _P], _I),
+    "knn_rerank": ([_P] * 4 + [_I] * 7 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -37,9 +37,12 @@ The spans a fit records (each inside the one above it, ``PERF.md`` §3):
   ``graph.finalize``;
 * ``kernels.build``, when the CUDA sources compile.
 
-Counters: ``graph.flagged_rows``, ``solve.host_wait_ns`` (the host's time
-blocked in the frontier loop's one sync a sweep), ``kernels.builds`` and
-``ingest.new_shapes`` (a store update or argkmin shape seen first).
+Counters: ``graph.flagged_rows``, ``graph.rerank_store_rows`` (new rows
+whose lists were re-selected on the card from the device store: every row
+under single-device ingest, none on the host selector or a mesh),
+``solve.host_wait_ns`` (the host's time blocked in the frontier loop's one
+sync a sweep), ``kernels.builds`` and ``ingest.new_shapes`` (a store update
+or argkmin shape seen first).
 """
 
 from __future__ import annotations

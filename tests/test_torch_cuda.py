@@ -1,8 +1,8 @@
-"""The port on the card: the CUDA kernels (frontier sweep, argkmin, BSR
-SpMV, Shiloach–Vishkin step and fixpoint) against their plain versions,
-and the main paths through them.  Every test here needs an NVIDIA GPU and
-skips without one; this file imports neither jax nor the reference, so it
-runs on a machine that has only PyTorch:
+"""The port on the card: the CUDA kernels (frontier sweep, argkmin, kNN
+rerank, BSR SpMV, Shiloach–Vishkin step and fixpoint) against their plain
+versions, and the main paths through them.  Every test here needs an
+NVIDIA GPU and skips without one; this file imports neither jax nor the
+reference, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -20,7 +20,8 @@ from repro_torch.core.dynlp import DynLP
 from repro_torch.core.stream import StreamEngine
 from repro_torch.data.synth import StreamSpec, gaussian_mixture_stream
 from repro_torch.graph.dynamic import DynamicGraph
-from repro_torch.graph.knn import SELECT_MARGIN, normalize_rows, selection_slack
+from repro_torch.graph.knn import (SELECT_MARGIN, normalize_rows, pair_weights,
+                                   selection_slack, topk_pairs)
 from repro_torch.kernels.argkmin import (argkmin_candidates, argkmin_launch, argkmin_ref,
                                          shard_sweep)
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_ref
@@ -28,6 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.cc_hook import (cc_fixpoint, cc_hook_ref, cc_hook_step,
                                          connected_components_cuda, connected_components_ref)
 from repro_torch.kernels.ell_propagate import ell_propagate_ref, ell_propagate_step
+from repro_torch.kernels.knn_rerank import rerank_candidates, rerank_launch, rerank_ref
+from repro_torch.ingest.embedding_store import EmbeddingStore
+from repro_torch import telemetry
 
 pytestmark = pytest.mark.cuda
 
@@ -328,6 +332,82 @@ def test_device_ingest_stream_goes_through_argkmin(card):
         assert getattr(gg, name).tobytes() == getattr(gc, name).tobytes(), name
     ids = np.flatnonzero(gg.alive & (gg.labels == -1))
     assert np.abs(gg.f[ids] - gc.f[ids]).max() <= 20 * DELTA
+
+
+def _rerank_inputs(card, rng, d, m, tk, old=3000):
+    """A device store of width ``d`` with ``old`` rows, a tenth of them
+    killed (a candidate's row is read whatever its state), a third of all
+    rows copies of one (ties the ids decide), then the batch of ``m`` rows;
+    (m, tk) candidates among the old rows, a fifth of them -1 and every
+    fifth row under-full."""
+    rows = normalize_rows(rng.normal(size=(old + m, d)).astype(np.float32))
+    rows[::3] = rows[1]
+    store = EmbeddingStore(d, device=card)
+    store.append(rows[:old])
+    store.kill(rng.choice(old, size=old // 10, replace=False))
+    _, _, base = store.append(rows[old:])
+    cand = rng.integers(0, old, size=(m, tk)).astype(np.int32)
+    cand[rng.random((m, tk)) < 0.2] = -1
+    cand[::5, tk // 3:] = -1
+    return store, rows, base, torch.from_numpy(cand).to(card)
+
+
+@pytest.mark.parametrize("d", [8, 12, 128])
+@pytest.mark.parametrize("tk", [11, 13, 32])
+@pytest.mark.parametrize("m", [37, 100_000])
+def test_rerank_kernel_gives_the_plain_versions_bits(card, d, tk, m):
+    rng = np.random.default_rng(1000 * d + tk + m)
+    store, rows, base, cand = _rerank_inputs(card, rng, d, m, tk)
+    before = rerank_candidates.launches
+    got = rerank_candidates(store.emb, base, cand, d=d, k=5)
+    want = rerank_ref(store.emb, base, cand, d=d, k=5)
+    torch.cuda.synchronize()
+    assert rerank_candidates.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 13, 20])
+def test_rerank_kernel_gives_the_hosts_numpy_bits(card, k):
+    """Against ``topk_pairs(pair_weights(...))`` in this machine's numpy,
+    k at, below and above TK = 13."""
+    rng = np.random.default_rng(k)
+    store, rows, base, cand = _rerank_inputs(card, rng, 12, 500, 13)
+    got = rerank_launch(store.emb, base, cand, d=12, k=k)
+    ch = cand.cpu().numpy().astype(np.int64)
+    cw = np.full(ch.shape, -np.inf, np.float32)
+    qr, qc = np.nonzero(ch >= 0)
+    cw[qr, qc] = pair_weights(rows[base:][qr], rows[ch[qr, qc]])
+    want_i, want_w = topk_pairs(cw, ch, k)
+    assert np.array_equal(got[0].cpu().numpy(), want_i)
+    assert np.array_equal(got[1].cpu().numpy().view(np.int32), want_w.view(np.int32))
+
+
+def test_device_ingest_reranks_on_the_card(card):
+    """``StreamEngine(ingest="device")`` on the card re-selects every
+    inserting batch's lists with one rerank launch, counts its rows under
+    ``graph.rerank_store_rows``, and its graph equals a CPU host-ingest
+    DynLP's byte for byte."""
+    spec = StreamSpec(total_vertices=900, batch_size=300, seed=5, class_sep=6.0, noise=0.8)
+    gg, gc = DynamicGraph(16, 5), DynamicGraph(16, 5)
+    eng = StreamEngine(gg, delta=DELTA, ingest="device")
+    dc = DynLP(gc, delta=DELTA, device="cpu")
+    before = rerank_candidates.launches
+    inserts = rows = 0
+    telemetry.enable()
+    try:
+        for batch, _ in gaussian_mixture_stream(spec):
+            inserts += len(batch.ins_emb) > 0
+            rows += len(batch.ins_emb)
+            eng.step(batch)
+            dc.step(batch)
+        rec = telemetry.take()
+    finally:
+        telemetry.disable()
+    assert rerank_candidates.launches - before == inserts > 0
+    assert rec.counters["graph.rerank_store_rows"] == rows
+    for name in ("src", "dst", "wgt", "knn_idx", "knn_wgt"):
+        assert getattr(gg, name).tobytes() == getattr(gc, name).tobytes(), name
 
 
 def _bsr_inputs(rng, r, j, bs, c, empty=0.3, bare_rows=0.0, dtype=torch.float32):

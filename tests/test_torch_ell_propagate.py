@@ -161,14 +161,14 @@ ptxas info    : Used 4 registers, used 0 barriers
 def test_build_inputs_are_declared():
     assert [p.name for p in _build.sources()] == [
         "argkmin.cu", "argkmin_tkb16.cu", "argkmin_tkb32.cu", "argkmin_tkb8.cu", "bsr_spmv.cu",
-        "cc_hook.cu", "ell_propagate.cu"]
+        "cc_hook.cu", "ell_propagate.cu", "knn_rerank.cu"]
     assert [p.name for p in _build.headers()] == ["argkmin.cuh"]
     text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text or f'extern "C" const char* {name}(' in text
     # every pointer and the stream as c_void_p: a c_int would cut them
     for name, n_ptr in (("ell_propagate_step", 8), ("argkmin", 11), ("bsr_spmv", 4),
-                        ("cc_hook_step", 3), ("cc_fixpoint", 4)):
+                        ("cc_hook_step", 3), ("cc_fixpoint", 4), ("knn_rerank", 4)):
         argtypes, restype = _build.SIGNATURES[name]
         assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
         assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
