@@ -17,6 +17,8 @@ formula differ by at most ``COS_SLACK`` in a cosine, so a column left out
 cannot reach the ``k``-th weight when the ``t``-th candidate's cosine plus
 that slack stays below it; a row where it could is searched again with more
 candidates, and at last over every column (``KnnResult.widened``).
+``knn_lists`` runs that search for some rows over a subset of the columns,
+as the stream's replay needs it for a batch's new rows over the live ones.
 
 ``precision="tf32"`` is the control of ``portbench.check``: the same search
 with the normalized rows rounded to TF32 (10 mantissa bits, to nearest even)
@@ -26,6 +28,7 @@ matrix unit would give them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -68,34 +71,45 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
-def _topk_sims(e: torch.Tensor, rows: np.ndarray, t: int) -> tuple[np.ndarray, np.ndarray]:
-    """For each of ``rows``: the ``t`` largest cosines to other rows of ``e``
-    (self masked) and their columns, from a float32 product on e's device."""
-    n = e.shape[0]
+def _topk_sims(e: torch.Tensor, rows: np.ndarray, t: int, cols: np.ndarray | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """For each of ``rows``: the ``t`` largest cosines to the other rows of
+    ``e`` among ``cols`` (ascending ids; every row when None), self masked,
+    and their ids, from a float32 product on e's device."""
+    ec = e if cols is None else e[torch.from_numpy(cols).to(e.device)]
+    n = ec.shape[0]
     block = max(1, min(len(rows), _BLOCK_ELEMS // n))
-    vals, cols = [], []
+    vals, ids = [], []
     for lo in range(0, len(rows), block):
-        r = torch.from_numpy(rows[lo:lo + block]).to(e.device)
-        s = e[r] @ e.T
-        s[torch.arange(len(r), device=e.device), r] = -np.inf
+        rr = rows[lo:lo + block]
+        r = torch.from_numpy(rr).to(e.device)
+        s = e[r] @ ec.T
+        if cols is None:
+            s[torch.arange(len(r), device=e.device), r] = -np.inf
+        else:
+            at = np.minimum(np.searchsorted(cols, rr), n - 1)
+            own = np.flatnonzero(cols[at] == rr)
+            s[torch.from_numpy(own).to(e.device), torch.from_numpy(at[own]).to(e.device)] = -np.inf
         v, c = torch.topk(s, t, dim=1)
         vals.append(v.cpu().numpy())
-        cols.append(c.cpu().numpy().astype(np.int64))
+        c = c.cpu().numpy().astype(np.int64)
+        ids.append(c if cols is None else cols[c])
         del s
-    return np.concatenate(vals), np.concatenate(cols)
+    return np.concatenate(vals), np.concatenate(ids)
 
 
 def _canonical_topk(xh: np.ndarray, rows: np.ndarray, cand: np.ndarray, k: int):
     """Top ``k`` of each row's candidates by (canonical weight desc, id asc)."""
-    idx = np.empty((len(rows), k), np.int64)
-    wgt = np.empty((len(rows), k), np.float32)
-    step = max(1, _HOST_PAIRS // cand.shape[1])
+    idx = np.full((len(rows), k), -1, np.int64)  # -1/-inf past the candidates
+    wgt = np.full((len(rows), k), -np.inf, np.float32)
+    kk = min(k, cand.shape[1])
+    step = max(1, _HOST_PAIRS // max(1, cand.shape[1]))
     for lo in range(0, len(rows), step):
         c = cand[lo:lo + step]
         w = canonical_weights(xh[rows[lo:lo + step]][:, None, :], xh[c])
-        order = np.lexsort((c, -w), axis=-1)[:, :k]
-        idx[lo:lo + step] = np.take_along_axis(c, order, 1)
-        wgt[lo:lo + step] = np.take_along_axis(w, order, 1)
+        order = np.lexsort((c, -w), axis=-1)[:, :kk]
+        idx[lo:lo + step, :kk] = np.take_along_axis(c, order, 1)
+        wgt[lo:lo + step, :kk] = np.take_along_axis(w, order, 1)
     return idx, wgt
 
 
@@ -105,36 +119,57 @@ def _unsafe(top_cos: np.ndarray, kth_w: np.ndarray) -> np.ndarray:
     return bound >= kth_w
 
 
-def exact_knn(x: np.ndarray, k: int, *, device="cpu", precision: str = "float32"
-              ) -> KnnResult:
-    """Every vertex's ``k`` nearest others by the configuration's weight."""
-    if precision not in ("float32", "tf32"):
-        raise ValueError(f"precision {precision!r}: want 'float32' or 'tf32'")
+@contextlib.contextmanager
+def no_tf32():
+    """float32 products on the card: TF32 off while the block runs."""
     was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        xh = normalize_rows(x)
-        n = len(xh)
-        e = torch.from_numpy(xh).to(device)
-        rows = np.arange(n, dtype=np.int64)
-        if precision == "tf32":
-            vals, cols = _topk_sims(round_tf32(e), rows, min(k + MARGIN, n - 1))
-            w = ((vals + np.float32(1.0)) * np.float32(0.5)).astype(np.float32)
-            order = np.lexsort((cols, -w), axis=-1)[:, :k]
-            return KnnResult(np.take_along_axis(cols, order, 1),
-                             np.take_along_axis(w, order, 1), 0)
-        t = min(k + MARGIN, n - 1)
-        vals, cols = _topk_sims(e, rows, t)
-        idx, wgt = _canonical_topk(xh, rows, cols, k)
-        redo = np.flatnonzero(_unsafe(vals[:, -1], wgt[:, -1])) if t < n - 1 else rows[:0]
-        widened = len(redo)
-        for t_wide in (min(WIDE, n - 1), n - 1):
-            if not len(redo):
-                break
-            v2, c2 = _topk_sims(e, redo, t_wide)
-            i2, w2 = _canonical_topk(xh, redo, c2, k)
-            idx[redo], wgt[redo] = i2, w2
-            redo = (redo[_unsafe(v2[:, -1], w2[:, -1])] if t_wide < n - 1 else redo[:0])
-        return KnnResult(idx, wgt, widened)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def knn_lists(xh: np.ndarray, e: torch.Tensor, rows: np.ndarray, k: int, *,
+              cols: np.ndarray | None = None, precision: str = "float32") -> KnnResult:
+    """The lists of ``rows`` (ids into ``xh``, ``e`` the same rows on the
+    device) over the columns ``cols`` (ascending ids, the rows among them;
+    every row when None): the search of the module's docstring.  A row with
+    fewer than ``k`` other columns pads its list with -1/-inf."""
+    if precision not in ("float32", "tf32"):
+        raise ValueError(f"precision {precision!r}: want 'float32' or 'tf32'")
+    n = len(xh) if cols is None else len(cols)
+    if n < 2:
+        return KnnResult(np.full((len(rows), k), -1, np.int64),
+                         np.full((len(rows), k), -np.inf, np.float32), 0)
+    t = min(k + MARGIN, n - 1)
+    with no_tf32():
+        if precision == "tf32":
+            vals, cand = _topk_sims(round_tf32(e), rows, t, cols)
+            w = ((vals + np.float32(1.0)) * np.float32(0.5)).astype(np.float32)
+            order = np.lexsort((cand, -w), axis=-1)[:, :k]
+            idx = np.full((len(rows), k), -1, np.int64)
+            wgt = np.full((len(rows), k), -np.inf, np.float32)
+            idx[:, :order.shape[1]] = np.take_along_axis(cand, order, 1)
+            wgt[:, :order.shape[1]] = np.take_along_axis(w, order, 1)
+            return KnnResult(idx, wgt, 0)
+        vals, cand = _topk_sims(e, rows, t, cols)
+        idx, wgt = _canonical_topk(xh, rows, cand, k)
+        at = np.flatnonzero(_unsafe(vals[:, -1], wgt[:, -1])) if t < n - 1 else rows[:0]
+        widened = len(at)
+        for t_wide in (min(WIDE, n - 1), n - 1):
+            if not len(at):
+                break
+            v2, c2 = _topk_sims(e, rows[at], t_wide, cols)
+            i2, w2 = _canonical_topk(xh, rows[at], c2, k)
+            idx[at], wgt[at] = i2, w2
+            at = at[_unsafe(v2[:, -1], w2[:, -1])] if t_wide < n - 1 else at[:0]
+        return KnnResult(idx, wgt, widened)
+
+
+def exact_knn(x: np.ndarray, k: int, *, device="cpu", precision: str = "float32"
+              ) -> KnnResult:
+    """Every vertex's ``k`` nearest others by the configuration's weight."""
+    xh = normalize_rows(x)
+    return knn_lists(xh, torch.from_numpy(xh).to(device), np.arange(len(xh), dtype=np.int64),
+                     k, precision=precision)

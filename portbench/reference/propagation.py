@@ -99,6 +99,29 @@ def build_problem(idx: np.ndarray, wgt: np.ndarray, labels: np.ndarray,
     return Problem(unl_ids=unl_ids, nbr=nbr, wgt=wmat, wl0=wl0, wl1=wl1)
 
 
+def determined(p: Problem) -> np.ndarray:
+    """(U,) bool: a path of neighbour-row edges leads from the row to a seed."""
+    mask = p.nbr >= 0
+    idx = np.where(mask, p.nbr, 0)
+    det = (p.wl0 + p.wl1) > 0
+    while True:
+        grown = det | (det[idx] & mask).any(axis=1)
+        if (grown == det).all():
+            return det
+        det = grown
+
+
+def residual(p: Problem, f: np.ndarray) -> np.ndarray:
+    """(U,) |F_u - T(F)_u| in float64 for the scores ``f`` (U,) of the
+    unlabeled vertices, T the right-hand side of the system above: how far
+    ``f`` is from solving it (0 on a row with no edge)."""
+    f = np.asarray(f, np.float64)
+    mask = p.nbr >= 0
+    wall = p.wgt.sum(axis=1) + p.wl0 + p.wl1
+    rhs = p.wl1 + (p.wgt * np.where(mask, f[np.where(mask, p.nbr, 0)], 0.0)).sum(axis=1)
+    return np.where(wall > 0, np.abs(rhs / np.where(wall > 0, wall, 1.0) - f), 0.0)
+
+
 TOL = 1e-12  # float64 sweeps stop once no determined score moves more
 CHECK_EVERY = 64  # sweeps between two looks at the residual (a host sync)
 
@@ -117,12 +140,7 @@ def fixed_point(p: Problem, *, device="cpu", dtype=torch.float64,
     live = wall > 0
     inv = torch.where(live, 1.0 / torch.where(live, wall, 1.0), 0.0)
 
-    det = (wl0 + wl1) > 0
-    while True:
-        grown = det | (det[idx] & mask).any(dim=1)
-        if bool((grown == det).all()):
-            break
-        det = grown
+    det = torch.from_numpy(determined(p)).to(device)
 
     f = torch.full((len(p.wl0),), 0.5, dtype=dtype, device=device)
     it = 0

@@ -1,5 +1,6 @@
-"""On the card: a short run of each cell through the command, and the
-trace it reads.  Marked ``cuda``; skips without a card."""
+"""On the card: a short run of each cell through the command, and every
+device-trace metric the cell lists read from it.  Marked ``cuda``; skips
+without a card."""
 
 import json
 import subprocess
@@ -9,7 +10,9 @@ import pytest
 
 from portbench import harness
 
-CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
+BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
+CELLS = [w["name"] for w in BENCH["workloads"]]
+DEVICE_TRACE = {m["name"] for m in BENCH["per_layer"] if m["source"] == "device_trace"}
 
 
 @pytest.fixture
@@ -30,6 +33,9 @@ def test_short_traced_run_on_the_card(card, cell):
     line = json.loads(p.stdout.strip().splitlines()[-1])
     assert line["correct"] is True
     assert line["device"]["platform"] == "gpu" and line["device"]["busy_s"] > 0
-    assert 0 < line["metrics"]["kernel.argkmin_roofline"]["value"] <= 100
-    assert 0 < line["metrics"]["kernel.sweep_roofline"]["value"] <= 100
+    traced = {m["name"] for m in harness.cell_spec(BENCH, cell)[4]
+              if m["source"] == "device_trace"}
+    assert traced == {n for n in line["metrics"] if n in DEVICE_TRACE}
+    for name in traced:
+        assert 0 < line["metrics"][name]["value"] <= 100, name
     assert len(line["breakdown"]["device_ops"]) <= 10

@@ -3,6 +3,7 @@ top-level module names compared whole, so ``repro_torch`` passes."""
 
 import ast
 import pathlib
+import subprocess
 import sys
 import types
 
@@ -31,6 +32,21 @@ def test_no_source_imports_jax_or_the_jax_package():
             if name.partition(".")[0] in BANNED:
                 found.setdefault(str(path.relative_to(PKG)), []).append(name)
     assert not found
+
+
+def test_the_references_import_nothing_of_the_program():
+    """The plain references (``reference/``) read no module of the port,
+    in their sources and when imported alone."""
+    for path in (PKG / "reference").glob("*.py"):
+        assert not [n for n in _imports(path) if n.partition(".")[0] in BANNED | {"repro_torch"}]
+    code = ("import sys; import portbench.reference.knn, portbench.reference.propagation, "
+            "portbench.reference.stream; "
+            "print(sorted({m.partition('.')[0] for m in sys.modules} & {'repro_torch', 'repro', "
+            "'jax'}))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip() == "[]"
 
 
 def test_program_hooks_name_the_port_only():

@@ -1,6 +1,6 @@
 """The per-layer metrics that read the program's own spans and counters
 (``portbench/program_spans.py``), in tiny CPU runs: a traced run of each
-cell reads all six and sums the take up on standard error; an untraced run
+cell reads every one that cell lists and sums the take up on standard error; an untraced run
 leaves the recorder off; against a program without the recorder they read
 nothing and the run goes on."""
 
@@ -35,16 +35,22 @@ def test_the_six_metrics_are_in_the_benchmark():
     assert len(PROGRAM) == 6
     for m in BENCH["per_layer"]:
         if m["name"] in PROGRAM:
-            assert m["moves"] == "fit_vertices_per_s" and m["workloads"] == CELLS
+            assert m["moves"] == "fit_vertices_per_s"
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert set(m.get("workloads", CELLS)) <= set(CELLS), m["name"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reads_the_program_spans(cell, capsys):
     line = tiny_run(cell, trace=True)
     assert line["correct"] is True
-    for name in PROGRAM:
+    want = {m["name"] for m in harness.cell_spec(BENCH, cell)[4]
+            if m["source"] in ("program_span", "program_counter")}
+    assert set(line["metrics"]) == want  # the device-trace metrics need the card
+    for name in want:
         assert line["metrics"][name]["value"] >= 0, name
-    assert line["metrics"]["solve.host_wait_s"]["value"] > 0
+    if "solve.host_wait_s" in want:
+        assert line["metrics"]["solve.host_wait_s"]["value"] > 0
     assert not telemetry.enabled()  # the first reading turned it off
     err = capsys.readouterr().err.splitlines()
     tag = "program spans: "
